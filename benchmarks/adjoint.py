@@ -4,7 +4,7 @@ Measures grad of a chi-square-like scalar through the full limb forward —
 the gradient-descent / adjoint retrieval economics.  The analytic transpose
 (ops.opacity._tangent_transpose) recomputes the Voigt basis in the backward
 pass instead of storing AD's per-scan-step linearisation, so it wins on both
-memory and time.  Run on TPU: python benchmarks/adjoint.py
+memory and time.  Run on a GPU: python benchmarks/adjoint.py
 """
 import os
 import sys

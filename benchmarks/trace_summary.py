@@ -1,17 +1,14 @@
 #!/usr/bin/env python
-"""Device-time trace summary — the profiling workflow that found the
-round-4 RT bottleneck, packaged for reuse.
+"""Device-time trace summary: a profiling workflow packaged for reuse.
 
 Captures a ``jax.profiler`` trace of the production fused
 forward+Jacobian scenario (or ``--scenario forward``) and prints device
-time aggregated by HLO op family: custom-calls (Pallas kernels), fusions,
-and — the smells worth hunting — ``while`` + ``dynamic-update-slice``
-pairs, which is how middle-axis gathers and ``cumsum`` show up when XLA
-serialises them (each such loop walks the full spectral slab one segment
-at a time; see forward/rt.py:layer_path_radiance for the round-4 fix and
-the 2.6x Jacobian win it bought).
+time aggregated by op family: the Triton kernels, fusions, and — the
+smells worth hunting — ``while`` + ``dynamic-update-slice`` pairs, which
+is how middle-axis gathers and ``cumsum`` show up when XLA serialises them
+(each such loop walks the full spectral slab one segment at a time).
 
-Run on TPU:  python benchmarks/trace_summary.py [--scenario jac|forward]
+Run on a GPU:  python benchmarks/trace_summary.py [--scenario jac|forward]
 """
 from __future__ import annotations
 
@@ -69,7 +66,7 @@ def summarize(trace_dir: str, n_reps: int) -> list:
     cnt = collections.Counter()
     for e in d["traceEvents"]:
         if e.get("ph") == "X" and e.get("dur"):
-            if "TPU" in pids.get(e["pid"], ""):
+            if "/device:" in pids.get(e["pid"], ""):
                 base = re.sub(r"[.\d()]+$", "", e["name"])
                 agg[base] += e["dur"]
                 cnt[base] += 1
@@ -86,11 +83,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(repo, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from spectrobot_tpu.cli import enable_compile_cache
+    enable_compile_cache()
 
     fn, x0 = build_scenario(args.scenario)
     jax.block_until_ready(fn(x0))                       # compile

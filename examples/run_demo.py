@@ -4,7 +4,7 @@
 This is the script-level workflow the reference drives with ``spect_robot.py``
 (SURVEY.md 4.1/4.2), expressed through the framework API.  Run:
 
-    python examples/run_demo.py            # CPU or TPU, ~a minute on TPU
+    python examples/run_demo.py            # CPU or GPU
 """
 
 import os
@@ -16,9 +16,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from spectrobot_tpu.cli import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from spectrobot_tpu.data.atmosphere import MARS, mars_standard_atmosphere
 from spectrobot_tpu.data.synth import co2_15um_band
@@ -32,7 +32,8 @@ from spectrobot_tpu.utils.plots import plot_radiances, plot_retrieval
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "out_demo")
 os.makedirs(OUT, exist_ok=True)
-dtype = jnp.float32 if jax.devices()[0].platform == "tpu" else jnp.float64
+# float32 on an accelerator, float64 on the CPU.
+dtype = jnp.float64 if jax.devices()[0].platform == "cpu" else jnp.float32
 
 # --- scene: Mars CO2 15 um limb scan ---------------------------------------
 atm = mars_standard_atmosphere(n_lev=15, z_top=80e3)

@@ -1,7 +1,7 @@
 // Native HITRAN .par parser (component C1's native data-loader tier).
 //
 // The reference (fedef17/SpectRobot) keeps its compiled code in Fortran
-// inner loops; in this framework the COMPUTE hot loop is a Pallas TPU
+// inner loops; in this framework the COMPUTE hot loop is a Pallas GPU
 // kernel, and the native C++ tier covers host-side data loading: parsing
 // multi-million-line HITRAN catalogs at memory bandwidth instead of
 // Python-object speed.  Exposed as a C ABI for ctypes (no pybind11 in this

@@ -1,7 +1,7 @@
 """Typed configuration (C18, SURVEY.md section 6 "config/flag system").
 
 The reference (fedef17/SpectRobot ``spect_robot.py`` [SURVEY.md 1.2]) parses
-a bespoke key-value input file.  TPU-native design: one frozen dataclass tree
+a bespoke key-value input file.  Design: one frozen dataclass tree
 loaded from TOML with dotted-path CLI overrides; every field is hashable so
 the config can be a jit static argument, and ONE object flows down the whole
 stack.
@@ -110,7 +110,7 @@ class ComputeConfig:
     variant: str = "humlicek4"          # | "weideman"
     cutoff_cm1: float = 25.0
     chunk: int = 256
-    use_pallas: bool = True             # Pallas kernel on TPU, jnp elsewhere
+    use_pallas: bool = True             # Triton kernel on GPU, jnp elsewhere
     use_lut: bool = False               # (P,T) LUT runtime (LTE forward only)
     lut_n_T: int = 21
     lut_n_p: int = 25
@@ -121,7 +121,7 @@ class ComputeConfig:
     mesh_nu: int = 0                    # 0 => all remaining devices
     # nu-halo line distribution (parallel/sharded.py): lines live on the nu
     # shard owning their center and wings reach neighbours via ring
-    # ppermute of line PARAMETERS — neighbour-only ICI traffic instead of
+    # ppermute of line PARAMETERS — neighbour-only traffic instead of
     # the line-axis psum of partial spectra.  Requires
     # cutoff_cm1 <= grid-span / mesh_nu (asserted loudly).
     mesh_halo: bool = False

@@ -21,7 +21,7 @@ Conversions happen exactly once, at the opacity interface
 
 Capability parity: the reference (fedef17/SpectRobot, see SURVEY.md section 1.2
 "spect_base_module.py") keeps planet/physics constants in its base module; this
-module is the TPU-native equivalent, with CODATA-2018 exact values.
+module is the equivalent, with CODATA-2018 exact values.
 """
 
 import math

@@ -2,7 +2,7 @@
 
 The reference (fedef17/SpectRobot ``spect_base_module.py`` [SURVEY.md 1.2])
 carries an atmospheric-profile class with interpolation plus Mars/Titan planet
-constants.  TPU-native design: :class:`Atmosphere` is a JAX pytree of flat
+constants.  Design: :class:`Atmosphere` is a JAX pytree of flat
 arrays on a fixed altitude grid — static shapes, log-pressure interpolation as
 pure jnp, differentiable end-to-end (temperature and VMR profiles are inputs
 the retrieval differentiates through, SURVEY.md C15/C16).
@@ -117,7 +117,7 @@ class Atmosphere2D:
 
     The reference's profile class carries lat/alt grids and interpolates to
     the observation latitude (``spect_base_module`` [SURVEY.md 1.2]).
-    TPU-native design: dense [NLAT, NZ] arrays on a shared altitude grid;
+    Design: dense [NLAT, NZ] arrays on a shared altitude grid;
     :meth:`at_lat` is a differentiable linear interpolation in latitude
     (log-space for p and n) returning a standard 1-D :class:`Atmosphere`,
     so one 2-D climatology serves a whole limb-scan campaign and latitude

@@ -1,7 +1,7 @@
 """HITRAN line-list ingestion (component C1 of SURVEY.md section 3).
 
 The reference (fedef17/SpectRobot, ``spect_classes.py`` [SURVEY.md 1.2]) parses
-160-character ``.par`` records into per-line Python objects.  The TPU-native
+160-character ``.par`` records into per-line Python objects.  The
 design is different: lines are parsed host-side ONCE into a columnar
 struct-of-arrays (:class:`LineList`), sorted by line-center wavenumber, and
 cached as ``.npz``.  Device code only ever sees flat float arrays — no Python
@@ -195,7 +195,7 @@ def _parse_float_col(raw: np.ndarray, field: str = "") -> np.ndarray:
     Blank fields parse as 0 (legitimate for optional columns like
     ``delta_air`` in older catalogs).  Non-numeric garbage FAILS LOUDLY
     with the record index and raw bytes — a malformed catalog must never
-    silently zero a physics parameter (VERDICT r3 missing item 4).
+    silently zero a physics parameter (round-3 review missing item 4).
     """
     s = np.char.strip(raw)
     s = np.where(s == b"", b"0", s)
@@ -230,7 +230,7 @@ def _validate_required(cols: Dict[str, np.ndarray]) -> None:
 def _attach_mass(cols: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """Denormalise isotopologue mass per line for kernel consumption.
 
-    Unknown (molecule, isotopologue) pairs FAIL LOUDLY (VERDICT.md round-1
+    Unknown (molecule, isotopologue) pairs FAIL LOUDLY (round-1 review
     item 6): a guessed mass silently corrupts every Doppler width of that
     species, so it must never enter the kernel.  The registry covers the
     full HITRAN numbering (1-55); a legitimate new isotopologue belongs in

@@ -2,7 +2,7 @@
 
 The reference (fedef17/SpectRobot ``spect_classes`` Level/Molec/IsoMolec
 [SURVEY.md 1.2]) matches lines to vibrational levels through quanta strings
-and carries prescribed vibrational-temperature profiles.  TPU-native design
+and carries prescribed vibrational-temperature profiles.  Design
 (SURVEY.md 8.4 hard part 4): ALL string matching happens host-side, once,
 producing integer ``level_upper``/``level_lower`` indices on the line list;
 the device sees only a dense ``(n_levels, n_layers)`` vibrational-temperature

@@ -1,14 +1,14 @@
 """Total internal partition sums Q(T) (component C2, SURVEY.md section 3).
 
 The reference (fedef17/SpectRobot ``spect_classes.py`` [SURVEY.md 1.2]) scales
-line strengths with TIPS partition sums.  TPU-native design: every
+line strengths with TIPS partition sums.  Design: every
 (molecule, isotopologue) gets a dense Q(T) table on a shared temperature grid,
 packed into one ``(n_species, n_T)`` array; runtime evaluation is a single
 linear interpolation per species — branch-free, jit-friendly, trivially
 sharded.
 
 Data source (this image has no network access, so official TIPS-2021 files
-cannot be shipped verbatim; VERDICT.md round-1 item 2):
+cannot be shipped verbatim; round-1 review item 2):
 
 * **Anchor**: the HITRAN ``molparam`` reference partition sums Q(296 K) —
   published scalar constants — are embedded per isotopologue and hold exactly:
@@ -28,7 +28,7 @@ cannot be shipped verbatim; VERDICT.md round-1 item 2):
 * **Override**: :func:`register_q_table` installs an external (e.g. official
   TIPS) table per isotopologue, which takes precedence.
 
-Because the SAME packed tables feed the golden NumPy oracle and the TPU
+Because the SAME packed tables feed the golden NumPy oracle and the device
 path, all acceptance configs remain self-consistent under any table source.
 """
 
@@ -197,7 +197,7 @@ _SPECIES: Dict[Tuple[int, int], dict] = {
                          (1190.0, 2), (2985.0, 2), (1469.0, 2), (821.6, 2))),
 
     # ------------------------------------------------------------------
-    # Round-3 completion (VERDICT.md round-2 item 2): principal
+    # Round-3 completion (round-2 review item 2): principal
     # isotopologues of every remaining HITRAN molecule, 8-21, 24, 25,
     # 28-55.  Constants are standard published values (NIST diatomic
     # tables / Herzberg / HITRAN documentation) from memory — no network
@@ -625,7 +625,7 @@ def register_q_table(mol_id: int, iso_id: int, temps: np.ndarray, q: np.ndarray)
 def q_of_T(mol_id: int, iso_id: int, T) -> np.ndarray:
     """Host-side Q(T) evaluation (numpy).  Warns when T falls outside the
     table grid (the device path clamps silently for jit-ability — a wrong-Q
-    line is a silent physics error, so the host path is loud; VERDICT.md
+    line is a silent physics error, so the host path is loud; the review
     round-1 weak item 5)."""
     T_arr = np.asarray(T, dtype=np.float64)
     if np.any(T_arr < T_GRID[0]) or np.any(T_arr > T_GRID[-1]):
@@ -648,7 +648,7 @@ def q_table(mol_id: int, iso_id: int) -> np.ndarray:
     if spec is None:
         # Fall back to the main isotopologue's SHAPE (Q(T)/Q296); rare-iso
         # shapes differ at the sub-percent level, but this is still a
-        # physics approximation the user should hear about (VERDICT.md
+        # physics approximation the user should hear about (the review
         # round-1 weak item 5).
         spec = _SPECIES.get((mol_id, 1))
         if spec is not None:

@@ -1,7 +1,7 @@
 """Line-of-sight geometry + Curtis-Godson averaging (C11/C12, SURVEY.md).
 
 The reference (fedef17/SpectRobot ``spect_base/spect_main`` [SURVEY.md 1.2])
-builds limb/nadir paths with Python loops.  TPU-native design: closed-form
+builds limb/nadir paths with Python loops.  Design: closed-form
 chord lengths through spherical shells,
 
     l(r) = sqrt(max(r^2 - r_t^2, 0)),   ds_layer = l(r_top) - l(r_bot),
@@ -43,7 +43,7 @@ class PathCG(NamedTuple):
     seg_layer: jnp.ndarray    # [n_seg] int32, observer-first layer index
     seg_count: int            # static: number of segments
     is_limb: bool             # static: limb (2 crossings/layer) vs nadir (1)
-    # Continuum/CIA support (C-CIA, VERDICT.md round-1 item 7):
+    # Continuum/CIA support (C-CIA, round-1 review item 7):
     u_air: jnp.ndarray = None   # [R, NL] one-side AIR column [molec m^-2]
     uu_air: jnp.ndarray = None  # [R, NL] int n_air^2 ds, SCALED by UU_SCALE
                                 #   (exact power of two; n^2 ~ 1e50 /m^5

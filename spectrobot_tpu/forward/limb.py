@@ -5,7 +5,7 @@ Assembles the full radiance pipeline of the reference's call stack 4.1
 program: Curtis-Godson states -> per-(ray, layer) opacity line sums (stage-2
 kernel) -> segment gather -> cumulative-transmittance RT -> (optional) ILS.
 
-Design notes (TPU-first):
+Design notes:
 * The (ray x layer) batch is a single vmap-of-vmap over the stage-2 kernel;
   per-species CG states are scattered per line (see ops/opacity.py), so one
   line-sum per (ray, layer) covers every species AND both non-LTE spectra.
@@ -60,7 +60,6 @@ def layer_tau(
     engine: str = "jnp",
     interpret: bool = False,
     windows=None,
-    windows_T=None,
     chi=None,
 ):
     """Raw per-(ray, layer) line sums: (dtau, dtau_em), each [R, NL, P].
@@ -73,8 +72,8 @@ def layer_tau(
     from float64 by the caller for f32-precision dnu; default computes it
     from ``nu_grid`` (exact for f64 grids, see DeviceLines docstring).
 
-    ``windows``/``windows_T``: explicit ragged kernel windows (engine=
-    'pallas'; see ops.pallas_opacity.static_windows) — pass per-shard
+    ``windows``: explicit ragged kernel windows (engine='pallas'; see
+    ops.pallas_opacity.static_windows) — pass per-shard
     tables from inside shard_map bodies, where the auto-computation below
     cannot run (traced centers).
 
@@ -92,10 +91,10 @@ def layer_tau(
         # The XLA engine's line-chunk scan materialises a (R*NL, chunk, P)
         # Voigt slab per step under this function's vmap-of-vmap (x4 slabs
         # under the tangent basis); clamp the chunk so that stays bounded —
-        # a 20-ray x 39-layer x 16k-point forward at chunk=128 exceeded
-        # v5e HBM and FAULTED the device (round-4 measurement).  No-op for
-        # ordinary scenes; the kernel engine streams blocks through VMEM
-        # and needs no clamp.
+        # a plain memory bound (5e8 bytes per slab; the budget is not yet
+        # derived from the device's memory).  No-op for ordinary scenes;
+        # the kernel engine keeps its tiles in registers and needs no
+        # clamp.
         chunk = _clamp_chunk(chunk, R * NL, int(nu_off.shape[-1]),
                              itemsize=jnp.dtype(nu_off.dtype).itemsize)
     # Pallas engine: when the grid and line centers are CONCRETE at trace
@@ -105,17 +104,15 @@ def layer_tau(
     # region-dispatching them (bit-identical results; the in-kernel cutoff
     # mask is unchanged).  Traced centers (e.g. inside shard_map bodies)
     # fall back to all-blocks.
-    if windows is None and windows_T is None and engine == "pallas" \
+    if windows is None and engine == "pallas" \
             and cutoff_cm1 is not None and not (
             isinstance(nu_off, jax.core.Tracer)
             or isinstance(lines.nu0, jax.core.Tracer)):
         import numpy as np
 
-        from spectrobot_tpu.ops.pallas_opacity import (
-            static_windows, static_windows_T)
-        nu_h, nc_h = np.asarray(nu_off), np.asarray(lines.nu0)
-        windows = static_windows(nu_h, nc_h, cutoff_cm1=cutoff_cm1)
-        windows_T = static_windows_T(nu_h, nc_h, cutoff_cm1=cutoff_cm1)
+        from spectrobot_tpu.ops.pallas_opacity import static_windows
+        windows = static_windows(np.asarray(nu_off), np.asarray(lines.nu0),
+                                 cutoff_cm1=cutoff_cm1)
     # Accumulation op with ANALYTIC derivatives: under jacfwd the Voigt
     # basis is shared across every Jacobian column (SURVEY.md 8.4 hard part
     # 3); analytic_jvp='rev' swaps in the custom-VJP op (grad/jacrev via the
@@ -134,7 +131,7 @@ def layer_tau(
         acc_op = make_accumulate_op(chunk=chunk, variant=variant,
                                     cutoff_cm1=cutoff_cm1, engine=engine,
                                     interpret=interpret, mode=mode,
-                                    windows=windows, windows_T=windows_T,
+                                    windows=windows,
                                     has_chi=chi is not None)
     else:
         from spectrobot_tpu.ops.opacity import accumulate_jnp
@@ -194,7 +191,7 @@ def layer_optics(
     ``cia`` (ops.cia.DeviceCIA) adds the collision-induced continuum to
     BOTH depths before source assembly — CIA thermalises at the kinetic
     temperature, so this pulls non-LTE sources toward B_nu(T_air) exactly
-    where the continuum dominates (VERDICT.md round-1 item 7).
+    where the continuum dominates (round-1 review item 7).
     """
     dtau, dtau_em = layer_tau(nu_grid, lines, cg, nlte, **kw)
     if cia is not None:
@@ -364,9 +361,7 @@ def path_radiance(
     I_background: Optional[jnp.ndarray] = None,
 ) -> jnp.ndarray:
     """Integrate layer optics in the observer-first segment order:
-    returns radiance [R, P].  Uses the gather-free one-hot formulation
-    (forward.rt.layer_path_radiance) — the middle-axis segment gather
-    lowered to sequential per-segment loops on TPU (round-4 profile)."""
+    returns radiance [R, P] (forward.rt.layer_path_radiance)."""
     from spectrobot_tpu.forward.rt import layer_path_radiance
     return layer_path_radiance(optics.dtau, optics.source, cg.seg_layer,
                                I_background)

@@ -2,7 +2,7 @@
 
 The reference (fedef17/SpectRobot ``spect_main_module.radtran*`` [SURVEY.md
 1.2/4.1]) integrates the RT equation segment-by-segment in Python/Fortran.
-TPU-native formulation: fully batched tensor ops over (ray, segment, nu) with
+Formulation: fully batched tensor ops over (ray, segment, nu) with
 a cumulative sum along the segment axis — no sequential host loop, XLA fuses
 the whole chain; differentiable end-to-end for the Jacobians (C15).
 
@@ -23,21 +23,6 @@ import jax
 import jax.numpy as jnp
 
 
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-def _cumulative_depth(dtau: jnp.ndarray) -> jnp.ndarray:
-    """Inclusive cumulative optical depth along the segment axis (-2), in
-    the backend-appropriate formulation (see radiance_along_ray notes)."""
-    if not _on_tpu():
-        return jnp.cumsum(dtau, axis=-2)
-    n_seg = dtau.shape[-2]
-    tril = jnp.tril(jnp.ones((n_seg, n_seg), dtau.dtype))
-    return jnp.einsum("st,...tp->...sp", tril, dtau,
-                      precision=jax.lax.Precision.HIGHEST)
-
-
 def radiance_along_ray(
     dtau: jnp.ndarray,
     source: jnp.ndarray,
@@ -53,18 +38,8 @@ def radiance_along_ray(
 
     Returns: [..., P] radiance at the observer.
     """
-    # Inclusive cumulative depth.  On TPU: ONE lower-triangular matmul over
-    # the (short) segment axis — jnp.cumsum there lowers to a sequential
-    # while loop of per-segment dynamic-update-slices over the full
-    # [..., P] slab; under a 32-column Jacobian those loops dominated the
-    # round-4 profile (~270 ms of a 495 ms fused Jacobian vs 241 ms for
-    # the opacity kernel itself).  The tril contraction is a single
-    # MXU-shaped op XLA parallelises freely; precision pinned because bf16
-    # matmuls corrupt radiances at the 0.4% level (README round-1 note).
-    # Elsewhere (CPU tests/oracles): plain cumsum — the lowering problem is
-    # TPU-specific and the tril form is O(n_seg^2 P) flops vs O(n_seg P)
-    # (round-4 review).
-    c = _cumulative_depth(dtau)
+    # Inclusive cumulative depth along the segment axis.
+    c = jnp.cumsum(dtau, axis=-2)
     t_after = jnp.exp(-c)
     # Transmittance BEFORE segment k is t_after of segment k-1 (and 1 at
     # the observer) — a shift, not a second big exp.
@@ -82,16 +57,10 @@ def layer_path_radiance(
     seg_layer: jnp.ndarray,
     I_background: Optional[jnp.ndarray] = None,
 ) -> jnp.ndarray:
-    """Radiance for per-LAYER optics traversed in ``seg_layer`` order —
-    WITHOUT materialising gathered [..., n_seg, P] arrays.
-
-    The naive ``dtau[:, seg_layer, :]`` gather on a middle axis lowers on
-    TPU to a sequential while loop of per-segment dynamic-slices over the
-    full [..., P] slab (round-4 profile: ~120 ms/rep of a 32-column limb
-    Jacobian).  Formulated as one-hot matmuls everything runs on the MXU:
+    """Radiance for per-LAYER optics traversed in ``seg_layer`` order:
 
         onehot[s, l] = [seg_layer[s] == l]
-        c    = (tril @ onehot) @ dtau_layers      cumulative depth/segment
+        c    = cumsum_s dtau_layers[seg_layer[s]]  cumulative depth/segment
         w    = t_before - t_after                  emission weight/segment
         wlay = onehot^T @ w                        weights scattered to layers
         I    = sum_l source_layers[l] * wlay[l] (+ background term)
@@ -107,23 +76,14 @@ def layer_path_radiance(
       I_background: [..., P] radiance entering the far end.
     """
     NL = dtau_layers.shape[-2]
-    n_seg = seg_layer.shape[0]
     dt = dtau_layers.dtype
     onehot = jax.nn.one_hot(seg_layer, NL, dtype=dt)          # [n_seg, NL]
-    hp = dict(precision=jax.lax.Precision.HIGHEST)
-    if _on_tpu():
-        tril = jnp.tril(jnp.ones((n_seg, n_seg), dt))
-        G = jnp.einsum("st,tl->sl", tril, onehot, **hp)       # counts<=s
-        c = jnp.einsum("sl,...lp->...sp", G, dtau_layers, **hp)
-    else:
-        # CPU/GPU: middle-axis gather + cumsum lower fine there, and skip
-        # the O(n_seg^2 P) tril flops (round-4 review).
-        c = jnp.cumsum(jnp.take(dtau_layers, seg_layer, axis=-2), axis=-2)
+    c = jnp.cumsum(jnp.take(dtau_layers, seg_layer, axis=-2), axis=-2)
     t_after = jnp.exp(-c)
     t_before = jnp.concatenate(
         [jnp.ones_like(t_after[..., :1, :]), t_after[..., :-1, :]], axis=-2)
-    w_layer = jnp.einsum("sl,...sp->...lp", onehot,
-                         t_before - t_after, **hp)
+    w_layer = jnp.einsum("sl,...sp->...lp", onehot, t_before - t_after,
+                         precision=jax.lax.Precision.HIGHEST)
     emitted = jnp.sum(source_layers * w_layer, axis=-2)
     if I_background is not None:
         emitted = emitted + I_background * t_after[..., -1, :]

@@ -1,14 +1,14 @@
-"""Sub-Lorentzian wing-correction (chi) factors (VERDICT r4 item 9).
+"""Sub-Lorentzian wing-correction (chi) factors (round-4 review item 9).
 
 CO2-CO2 line wings fall off FASTER than Lorentzian; Mars/Venus CO2
 radiative-transfer codes multiply the far wing by an empirical chi factor
 (Perrin & Hartmann 1989-style piecewise exponentials).  Whether the
 reference (fedef17/SpectRobot) ships one is unverifiable while the mount
 is empty (SURVEY.md section 0.1.5); this hook is the cheap insurance the
-round-4 VERDICT asked for: default OFF is bit-identical, and one
+round-4 review asked for: default OFF is bit-identical, and one
 literature-parameterised profile ships for the flagship CO2 workload.
 
-TPU-native form: within the production wing cutoff (<= 30 cm^-1) only the
+Form: within the production wing cutoff (<= 30 cm^-1) only the
 FIRST Perrin-Hartmann segment applies, so chi reduces to a single
 per-line exponential slope
 

@@ -1,4 +1,4 @@
-"""Collision-induced absorption / continuum opacity (VERDICT.md round-1
+"""Collision-induced absorption / continuum opacity (round-1 review
 item 7; SURVEY.md section 9 open item — Mars CO2-CO2 and Titan N2-N2/N2-CH4
 limb work commonly needs an additive continuum).
 
@@ -16,7 +16,7 @@ ratios; this module folds the inverse scale and all unit conversions into
 the staged tables at build time (host float64), so the on-device math is a
 temperature interpolation plus one multiply-accumulate per pair.
 
-TPU-native design: tables are resampled onto the forward model's wavenumber
+Design: tables are resampled onto the forward model's wavenumber
 grid ON HOST at staging time (the grid is static under jit), packed into one
 ``[n_pair, nT, P]`` array, and interpolated LINEARLY in T on device — fully
 differentiable in T_air and (through the mixing ratios) in the VMR state,

@@ -1,10 +1,10 @@
 """Real-pair complex arithmetic helpers.
 
-Pallas TPU kernels have no complex dtype, so all complex math in the Voigt
+Pallas kernels have no complex dtype, so all complex math in the Voigt
 evaluators is written over (re, im) tuples of real arrays.  These helpers are
 dtype- and backend-agnostic: they work identically under jnp tracing, inside
 Pallas kernel bodies, and on numpy arrays — which lets the exact same
-line-shape math be unit-tested on CPU and compiled into the TPU kernel
+line-shape math be unit-tested on CPU and compiled into the GPU kernel
 (SURVEY.md section 8.3).
 """
 

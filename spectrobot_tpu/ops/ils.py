@@ -2,14 +2,14 @@
 
 The reference (fedef17/SpectRobot ``SpectralObject`` convolution [SURVEY.md
 1.2]) convolves monochromatic spectra with an ILS and resamples to instrument
-channels.  TPU-native design: precompute (host-side, numpy) a dense
+channels.  Design: precompute (host-side, numpy) a dense
 channelisation matrix W [n_chan, P] with rows = area-normalised ILS kernels
 centred on each channel; application is then a single matmul
 
     I_chan [.., n_chan] = I_mono [.., P] @ W.T
 
-which runs on the MXU (SURVEY.md C14: "matmul against precomputed ILS matrix
-(MXU-friendly)").  For typical P ~ 1e4-1e5, n_chan ~ 1e2-1e3 the dense matrix
+one dense contraction (SURVEY.md C14: "matmul against precomputed ILS
+matrix").  For typical P ~ 1e4-1e5, n_chan ~ 1e2-1e3 the dense matrix
 is small next to the spectra; XLA fuses the contraction with upstream ops.
 """
 
@@ -101,7 +101,7 @@ def apply_fov(radiances: jnp.ndarray, V: jnp.ndarray) -> jnp.ndarray:
 
 
 def apply_ils(spectra: jnp.ndarray, W: jnp.ndarray) -> jnp.ndarray:
-    """I_chan = spectra @ W.T — batched over any leading axes (MXU matmul)."""
+    """I_chan = spectra @ W.T — batched over any leading axes (one matmul)."""
     return jnp.einsum("...p,cp->...c", spectra, W,
                       preferred_element_type=spectra.dtype,
                       precision=jax.lax.Precision.HIGHEST)

@@ -2,8 +2,8 @@
 
 The reference (fedef17/SpectRobot ``makeLUT*`` [SURVEY.md 1.2/4.3]) precomputes
 absorption/emission coefficients per species/level on a (P, T) grid with a
-multiprocessing pool, then interpolates at runtime.  TPU-native position
-(SURVEY.md C9): on TPU, recomputing the line sum is often FASTER than
+multiprocessing pool, then interpolates at runtime.  Position
+(SURVEY.md C9): on an accelerator, recomputing the line sum is often FASTER than
 streaming a big LUT from HBM, so the LUT is a CACHE TIER, not the core path —
 useful for very large line lists on small grids, for CPU fallbacks, and for
 serving scenarios that amortise a build across many retrievals.
@@ -78,7 +78,7 @@ def _lattice_eval(one_point: Callable, T_grid, logp_grid,
 
     Serial path: one jitted vmap batch per T row (bounded memory).
     Mesh path: the FLATTENED lattice is sharded over the mesh's devices and
-    each device sweeps its own points with ``lax.map`` — the TPU-native
+    each device sweeps its own points with ``lax.map`` — the
     replacement for the reference's multiprocessing ``makeLUT*`` pool
     (SURVEY.md 4.3): every chip builds an equal slice of the lattice, and
     the gather back to host is the only cross-device traffic.
@@ -329,7 +329,7 @@ def build_nlte_lut(
     chi=None,
 ) -> NLTELUT:
     """Build the three per-group tables in ONE line sum per lattice point:
-    the Voigt basis is shared across all 3G amplitude rows (an MXU
+    the Voigt basis is shared across all 3G amplitude rows (one
     contraction), so the build costs the same line-shape work as the LTE
     tier regardless of the number of levels.  ``mesh`` shards the lattice
     build over devices (:func:`lut_mesh`)."""

@@ -151,10 +151,11 @@ def accumulate_jnp(
                 jnp.abs(dnu) - CHI_DELTA1, 0.0))
         if cutoff_cm1 is not None:
             wr = jnp.where(jnp.abs(dnu) <= cutoff_cm1, wr, 0.0)
-        # [n_out, P] += [n_out, chunk] @ [chunk, P] — MXU contraction.
-        # HIGHEST precision is REQUIRED on TPU: the default bf16 matmul's
-        # ~0.4% relative error on large cancelling terms corrupts saturated
-        # line cores (and catastrophically corrupts Jacobian tangents).
+        # [n_out, P] += [n_out, chunk] @ [chunk, P].
+        # HIGHEST precision is REQUIRED: a reduced-precision matmul (TF32 or
+        # bf16 passes, ~1e-3 relative) on large cancelling terms corrupts
+        # saturated line cores (and catastrophically corrupts Jacobian
+        # tangents).
         acc = acc + jnp.einsum("oc,cp->op", am, wr,
                                precision=jax.lax.Precision.HIGHEST)
         return acc, None
@@ -181,7 +182,7 @@ def accumulate_jnp(
 #           + [amps d_y] Ky
 #
 # Because the basis is tangent-INDEPENDENT, under jax.jacfwd (vmap over
-# tangents) it is evaluated once and every Jacobian column is a cheap MXU
+# tangents) it is evaluated once and every Jacobian column is a cheap
 # contraction against it — the full analytic Jacobian of the line sum costs
 # ~2 extra Voigt-grad passes instead of n_params passes.
 #
@@ -289,7 +290,7 @@ def _tangent_via_basis(nu_grid, nu_c, sx, y, amps,
         B2 = am * (-s * dnc)[None, :]
         B3 = am * (dsx / s)[None, :]
         B4 = am * dy[None, :]
-        # HIGHEST precision is REQUIRED on TPU: bf16 matmuls corrupt the
+        # HIGHEST precision is REQUIRED: reduced-precision matmuls corrupt the
         # strongly varying tangent contractions (wrong-sign tangents at
         # saturated line cores).
         hp = dict(precision=jax.lax.Precision.HIGHEST)
@@ -361,61 +362,31 @@ def accumulate_pallas_jit(nu_grid, kl: KernelLines, *,
                           cutoff_cm1: Optional[float] = 25.0,
                           interpret: bool = False,
                           windows=None) -> jnp.ndarray:
-    """Pallas stage-2 accumulation callable INSIDE jit: by default every
-    line block is visited for every tile (window tables are static
-    all-blocks), with the exact in-kernel |dnu| <= cutoff mask and
-    block-level region dispatch doing the skipping work.  No host-side data
-    needed, so this composes with jit/vmap — the kernel engine for the
-    DIFFERENTIABLE paths.  ``windows`` = (starts, counts, max_blocks) from
+    """Pallas stage-2 accumulation callable INSIDE jit (the batch kernel
+    with B = 1): by default every line block is visited for every tile,
+    with the exact in-kernel |dnu| <= cutoff mask and block-level region
+    dispatch doing the skipping work.  No host-side data needed, so this
+    composes with jit/vmap — the kernel engine for the DIFFERENTIABLE
+    paths.  ``windows`` = (starts, counts, max_blocks) from
     :func:`ops.pallas_opacity.static_windows` (host-known grid/centers —
     the build_forward case) bakes REAL ragged windows in as compile-time
     constants, skipping provably-out-of-cutoff blocks entirely."""
     from spectrobot_tpu.ops.pallas_opacity import (
-        DEFAULT_BLOCK_L, DEFAULT_TILE_P, _accumulate_padded, _round_up)
+        DEFAULT_BLOCK_L, DEFAULT_TILE_P, accumulate_pallas_batch_jit)
 
-    tile_p = DEFAULT_TILE_P if tile_p is None else tile_p
-    block_l = DEFAULT_BLOCK_L if block_l is None else block_l
-    P = nu_grid.shape[0]
-    L = kl.nu_c.shape[0]
-    n_out = kl.amps.shape[0]
-    Pp = _round_up(max(P, tile_p), tile_p)
-    Lp = _round_up(max(L, block_l), block_l)
-
-    # Pad-fill semantics mirror ops.pallas_opacity.accumulate_pallas: padded
-    # grid points sit far above the data, padded lines are zero-amplitude
-    # and "far" (huge scale_x / y) so the block-minimum region-dispatch
-    # bound reflects only real lines.  Fills are data-relative (traced max)
-    # so the invariants hold for any coordinate origin.
-    far_nu = jnp.max(nu_grid).astype(jnp.float32) + 1e6
-    far_line = jnp.max(kl.nu_c).astype(jnp.float32) + 1e7
-    nu_pad = jnp.full((Pp,), far_nu, jnp.float32).at[:P].set(
-        nu_grid.astype(jnp.float32))
-    padl = lambda a, fill: jnp.full((Lp,), fill, jnp.float32).at[:L].set(
-        a.astype(jnp.float32))
-    amps_p = jnp.zeros((n_out, Lp), jnp.float32).at[:, :L].set(
-        kl.amps.astype(jnp.float32))
-    n_tiles = Pp // tile_p
-    n_blocks = Lp // block_l
-    if windows is None:
-        starts = jnp.zeros((n_tiles,), jnp.int32)
-        counts = jnp.full((n_tiles,), n_blocks, jnp.int32)
-        max_blocks = n_blocks
-    else:
-        starts, counts, max_blocks = windows
-        starts, counts = jnp.asarray(starts), jnp.asarray(counts)
-    out = _accumulate_padded(
-        nu_pad.reshape(Pp, 1), padl(kl.nu_c, far_line).reshape(1, Lp),
-        padl(kl.scale_x, 1e6).reshape(1, Lp), padl(kl.y, 1e6).reshape(1, Lp),
-        amps_p, starts, counts, max_blocks=int(max_blocks), tile_p=tile_p,
-        block_l=block_l, cutoff_cm1=cutoff_cm1, interpret=interpret,
-        chi2d=(None if kl.chi_b is None
-               else padl(kl.chi_b, 0.0).reshape(1, Lp)))
-    return out[:, :P]
+    out = accumulate_pallas_batch_jit(
+        nu_grid, kl.nu_c[None], kl.scale_x[None], kl.y[None],
+        kl.amps[None],
+        tile_p=DEFAULT_TILE_P if tile_p is None else tile_p,
+        block_l=DEFAULT_BLOCK_L if block_l is None else block_l,
+        cutoff_cm1=cutoff_cm1, interpret=interpret, windows=windows,
+        chi_b=None if kl.chi_b is None else kl.chi_b[None])
+    return out[0]
 
 
 def _make_tangent_pallas(*, cutoff_cm1, interpret, tile_p=None, block_l=None,
                          max_blocks=None, has_chi=False):
-    """Fused Pallas tangent of the accumulation (VERDICT.md round-1 item 4).
+    """Fused Pallas tangent of the accumulation (round-1 review item 4).
 
     Returns tangent(nu, nu_c, sx, y, amps, d_nu_c, d_sx, d_y, d_amps,
     wst, wct) -> [n_out, P], built on the in-kernel basis contraction
@@ -437,7 +408,7 @@ def _make_tangent_pallas(*, cutoff_cm1, interpret, tile_p=None, block_l=None,
       * the jacfwd tangent vmap batches ONLY the d_* arguments — FOLDED into
         the kernel's output-row axis (R = n_tangents x n_out), so the basis
         is evaluated once per (state, tile, block) for the whole Jacobian
-        and each column costs four MXU matmul rows.
+        and each column costs four contraction rows.
     """
     from jax.custom_batching import custom_vmap
 
@@ -657,15 +628,22 @@ def _make_primal_pallas(*, cutoff_cm1, interpret, max_blocks=None,
     return acc0
 
 
+def default_engine() -> str:
+    """The opacity engine for the default device: 'pallas' (the Triton
+    kernels of ops.pallas_opacity) on a GPU, 'jnp' (XLA; the reference)
+    on any other backend."""
+    return "pallas" if jax.devices()[0].platform == "gpu" else "jnp"
+
+
 def make_accumulate_op(*, chunk: int = 256, variant: str = "humlicek4",
                        cutoff_cm1: Optional[float] = 25.0,
                        engine: str = "jnp", interpret: bool = False,
-                       mode: str = "fwd", windows=None, windows_T=None,
+                       mode: str = "fwd", windows=None,
                        has_chi: bool = False):
     """Build accumulate(nu_grid, nu_c, scale_x, y, amps) -> [n_out, P] with
     ANALYTIC derivatives.  nu_grid is non-differentiated (static instrument
     grid; its tangent/cotangent is ignored/zero).  engine: 'jnp' (XLA, any
-    backend/dtype) or 'pallas' (TPU kernel primal via
+    backend/dtype) or 'pallas' (GPU kernel primal via
     :func:`accumulate_pallas_jit`, float32, jit- and vmap-composable;
     mode='fwd' tangents route to the FUSED in-kernel basis contraction —
     :func:`_make_tangent_pallas` — which evaluates the Voigt basis once per
@@ -679,15 +657,14 @@ def make_accumulate_op(*, chunk: int = 256, variant: str = "humlicek4",
     ``custom_transpose`` has a batching rule in current JAX).
 
     mode='rev': ``jax.custom_vjp`` — grad / jacrev / jax.vjp get the
-    ANALYTIC transpose: one Voigt basis pass + six MXU contractions per
+    ANALYTIC transpose: one Voigt basis pass + six contractions per
     cotangent, with NO stored linearisation of the line sum (the backward
     recomputes wofz from the saved flat inputs — O(L + n_out*P) residual
-    memory instead of AD's O(chunk*P) per-scan-step stash).  With
-    engine='pallas' (round 3) the backward runs the IN-KERNEL transposed
-    basis contraction (:func:`pallas_opacity.basis_transpose_pallas_jit` —
-    cotangent x basis on the MXU, per-block output accumulating in VMEM,
-    ``windows_T`` skipping unreachable tiles); otherwise the jnp basis scan
-    (:func:`_tangent_transpose`).  custom_vjp batches under vmap, so this
+    memory instead of AD's O(chunk*P) per-scan-step stash).  The backward
+    is the jnp basis scan (:func:`_tangent_transpose`) for either engine;
+    with engine='pallas' only the primal runs in the kernel (reverse mode
+    is off the CLI's path, which uses jacfwd).  custom_vjp batches under
+    vmap, so this
     composes with the per-layer vmaps.  Forward-mode through the 'rev' op
     is unsupported (JAX's custom_vjp forbids jvp); pick the mode matching
     the caller's AD direction.
@@ -743,23 +720,9 @@ def make_accumulate_op(*, chunk: int = 256, variant: str = "humlicek4",
             # Frozen-chi convention in reverse mode too (ops/chi.py): chi
             # scales all four basis projections; its own cotangent is 0.
             nu_grid, nu_c, sx, y, chb, amps = res
-            if engine == "pallas":
-                from spectrobot_tpu.ops.pallas_opacity import (
-                    basis_transpose_pallas_jit)
-                AbK, AbKx, AbxKx, AbKy = basis_transpose_pallas_jit(
-                    nu_grid, nu_c, sx, y, ct, cutoff_cm1=cutoff_cm1,
-                    interpret=interpret, windows_T=windows_T,
-                    chi_b=chb if has_chi else None)
-                dt = jnp.result_type(nu_grid)
-                so = lambda M: jnp.sum(M.astype(dt) * amps, axis=0)
-                ct_amps = AbK.astype(dt)
-                ct_nc = -sx * so(AbKx)
-                ct_sx = so(AbxKx) / sx
-                ct_y = so(AbKy)
-            else:
-                ct_nc, ct_sx, ct_y, ct_amps = _tangent_transpose(
-                    nu_grid, nu_c, sx, y, amps, ct,
-                    chb if has_chi else None, **kw)
+            ct_nc, ct_sx, ct_y, ct_amps = _tangent_transpose(
+                nu_grid, nu_c, sx, y, amps, ct, chb if has_chi else None,
+                **kw)
             return (jnp.zeros_like(nu_grid), ct_nc, ct_sx, ct_y,
                     jnp.zeros_like(chb), ct_amps)
 

@@ -1,28 +1,40 @@
-"""Pallas TPU kernel P1: fused Voigt line-shape + opacity accumulation
-(components C5+C6; SURVEY.md 8.3 — the native-performance tier replacing the
-reference's Fortran inner loop).
+"""Fused Voigt line-shape + opacity accumulation kernels for NVIDIA GPUs,
+written in Pallas for the Triton backend (components C5+C6; SURVEY.md 8.3 —
+the native-performance tier replacing the reference's Fortran inner loop).
 
 Contract (same as :func:`spectrobot_tpu.ops.opacity.accumulate_jnp`):
 
-    out[o, p] = sum_i amps[o, i] * Re w(x_ip, y_i),
-    x_ip = (nu_grid[p] - nu_c[i]) * scale_x[i]
+    out[b, r, p] = sum_i  C1[b,r,i] K_bip + C2[b,r,i] Kx_bip
+                        + C3[b,r,i] xKx_bip + C4[b,r,i] Ky_bip,
+    K = Re w(x, y),  x_bip = (nu_grid[p] - nu_c[b,i]) * scale_x[b,i]
 
-Kernel layout (TPU-first):
-* 2D pallas grid (nu-tile i, line-block j); the output tile is revisited
-  across j (innermost) and accumulated in VMEM — zero HBM traffic for the
-  accumulator until the tile is done.
-* In-tile layout puts GRID POINTS on sublanes and LINES on lanes:
-  the (TILE_P x BLOCK_L) Faddeeva matrix broadcasts a [TILE_P, 1] grid
-  column against [1, BLOCK_L] line rows (VPU-shaped), and the reduction over
-  lines is one MXU matmul K @ amps^T -> [TILE_P, n_out].
-* The Voigt math is the branchless Humlicek-w4 of ops/voigt.py (shared code,
-  real-pair complex arithmetic — f32-stable in the wings, see
-  tests/test_voigt.py::test_humlicek4_f32_wing_accuracy).
-* Line windowing: lines arrive sorted by nu0 (C1), so each line-block spans
-  a contiguous wavenumber interval; the host computes, per nu-tile, the
-  [start, end) range of blocks within the wing cutoff and the kernel skips
-  everything else via a scalar-prefetched block map (ragged grid pattern).
-  Out-of-window points inside surviving blocks are masked elementwise.
+The primal line sum is the special case with one coefficient set (the line
+amplitudes) against K alone; the fused analytic-Jacobian basis uses all
+four (ops/opacity.py "analytic custom JVP" notes).
+
+Kernel layout:
+* Grid (state b, nu-tile i); both axes are parallel.  Each program owns
+  one [TILE_P]-point tile of one state and loops (``lax.fori_loop``) over
+  that tile's own window of line blocks, loading ``starts[i]``,
+  ``counts[i]`` and ``active[b]`` itself.  The accumulator stays in
+  registers; nothing is carried between programs.
+* Line windowing: lines arrive sorted by nu0 (C1), so each BLOCK_L-line
+  block spans a contiguous wavenumber interval; the host computes, per nu
+  tile, the [start, start + count) range of blocks within the wing cutoff
+  (:func:`static_windows`) and the loop visits only those.  Out-of-window
+  points inside visited blocks are masked elementwise, so windowed and
+  all-blocks evaluations agree bit for bit.
+* Tier dispatch: per (tile, block) the conservative bound
+  s_min = gap * min(scale_x) + min(y) selects, with nested ``lax.cond``, the
+  cheapest Humlicek formula valid for EVERY pair of the block (the far
+  region-1 rational covers most pairs of a windowed sum).  Each tier is
+  exactly what the pointwise w4 selects there, so dispatch is exact.
+* Reduction over lines: up to ``_SUM_ROWS`` output rows contract by
+  multiply-and-sum; more rows (the fused Jacobian folds every tangent
+  column into the row axis) contract in 16-row chunks with ``dot_general``
+  pinned to ``Precision.HIGHEST`` — IEEE float32 on the CUDA cores.  The
+  default precision would run in TF32 (~1e-3 relative), which flips
+  Jacobian signs at saturated line cores (tests/test_matmul_precision.py).
 """
 
 from __future__ import annotations
@@ -34,7 +46,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from spectrobot_tpu.constants import INV_SQRT_PI
 from spectrobot_tpu.ops import cpx
@@ -47,103 +59,29 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-# Default kernel geometry for the WINDOWED production paths (wing-cutoff
-# line sums).  Measured on v5e at the bench.py fused-engine scenario (2048
-# lines / 8192 pts / 640 states, cutoff 25 cm^-1): 256x128 = 187 ms vs
-# 256x256 = 296 ms vs 256x512 = 515 ms — smaller line blocks make the
-# ragged windows proportionally tighter (the window is cutoff + block span
-# wide) and 128 is the TPU lane width, so the ratio only improves.  DENSE
-# (cutoff=None) calls want the opposite — bench.py measures 256x256 best —
-# and pass explicit sizes.  Window tables and kernels MUST agree on these
-# sizes; every default below routes through the two constants.
-#
-# TILE_P (round-4 re-measurement): 256 stays.  512-point tiles looked
-# ~20% faster in a monkeypatch sweep, but that sweep mixed 256-granular
-# window tables with 512 kernels (def-time vs call-time constant binding)
-# — i.e. it measured a BROKEN config.  With windows and kernel honestly
-# agreeing at 512, the fused scenario is SLOWER (fwd 157 vs 132 ms, limb
-# scan 65 vs 55 ms): coarser tiles widen every ragged window by the tile
-# span, and that loss beats the fewer-grid-passes win.  1024 additionally
-# exhausts the 16 MB scoped VMEM under the 66-row fused-Jacobian
-# accumulator.
-DEFAULT_TILE_P = 256
-DEFAULT_BLOCK_L = 256
-
-# Dispatch sub-blocking (round 5): each DMA'd line block is processed in
-# SUB_BLOCKS independent slices of BLOCK_L/SUB_BLOCKS lines, each with its
-# own region-dispatch bound and MXU contraction, STATICALLY UNROLLED in
-# the kernel body.  This decouples the DMA/grid granularity (BLOCK_L —
-# fewer, larger grid steps amortise Mosaic's per-step machinery) from the
-# dispatch granularity (the 128-line sub-slice span keeps the near-core
-# tier quantised exactly as tightly as the old 128-line blocks).  Results
-# are bit-identical for any split: the in-kernel cutoff mask is
-# per-element and each sub-slice's dispatch bound is conservative over
-# exactly that slice.
-#
-# Round-5 measurements at the bench.py fused scenario (2048 lines, 8192
-# pts, 640 states): 256/2 = fwd 126 / jac 312 ms vs 128/1 = 130 / 320
-# (fewer grid steps, same dispatch); 512/4 = jac 897 ms (VMEM pressure
-# from 4x [66, 512] coefficient blocks — rejected); dense 256x256 kernel
-# 7.64 ms vs 7.96 at sub=1 (finer dispatch).  The round-4 "256-block"
-# rejection measured 256-wide DISPATCH (no sub-blocking), which widened
-# the near-tier quantisation — sub-blocking removes exactly that cost.
-DEFAULT_SUB_BLOCKS = 2
-
-# MXU precision for the in-kernel reduction matmuls.  HIGHEST = 6-pass
-# bf16 decomposition of f32 operands (full f32 accuracy); HIGH = 3-pass
-# (~1e-7 rel on these contractions); DEFAULT = single bf16 pass.  Env
-# override SPECTROBOT_MM_PRECISION={highest,high,default} exists for
-# A/B benchmarking only — production and tests use the baked-in default.
-import os as _os
-
-_MM_PRECISION = {
-    "highest": jax.lax.Precision.HIGHEST,
-    "high": jax.lax.Precision.HIGH,
-    "default": jax.lax.Precision.DEFAULT,
-}[_os.environ.get("SPECTROBOT_MM_PRECISION", "highest").lower()]
-
-# Geometry A/B overrides (benchmarks only — one consistent value per
-# process, so window tables and kernels always agree; the round-4
-# monkeypatch pitfall cannot occur through these).
-DEFAULT_TILE_P = int(_os.environ.get("SPECTROBOT_TILE_P",
-                                     str(DEFAULT_TILE_P)))
-DEFAULT_BLOCK_L = int(_os.environ.get("SPECTROBOT_BLOCK_L",
-                                      str(DEFAULT_BLOCK_L)))
-DEFAULT_SUB_BLOCKS = int(_os.environ.get("SPECTROBOT_SUB_BLOCKS",
-                                         str(DEFAULT_SUB_BLOCKS)))
-
-# A/B flag: contract the four basis matrices in ONE dot_general by
-# concatenating along the contraction (line) axis instead of four dots.
-_MERGED_DOT = _os.environ.get("SPECTROBOT_MERGED_DOT", "0") == "1"
-
-# Grid dimension semantics: the batch (state) and nu-tile grid axes carry
-# no cross-iteration dependence — only the innermost line-block axis
-# accumulates into a revisited output — so they are declared PARALLEL to
-# Mosaic (pipelining/reordering freedom).  SPECTROBOT_DIMSEM=0 is the A/B
-# escape hatch.
-_DIMSEM = _os.environ.get("SPECTROBOT_DIMSEM", "1") == "1"
-
-
-def _cparams(n_parallel: int, n_total: int):
-    if not _DIMSEM:
-        return None
-    sem = (("parallel",) * n_parallel
-           + ("arbitrary",) * (n_total - n_parallel))
-    return pltpu.CompilerParams(dimension_semantics=sem)
-
-
-# Benchmark-only ablation for the batched basis kernel (WRONG RESULTS —
-# never set outside benchmarks/):  "novoigt" replaces the basis evaluation
-# with pass-throughs (isolates matmul+DMA+grid cost), "nodot" replaces the
-# four matmuls with a scalar reduction (isolates Voigt VPU cost).
-_ABLATE = _os.environ.get("SPECTROBOT_KERNEL_ABLATE", "")
+# Kernel geometry (powers of two, as Triton requires).  Window tables and
+# kernels MUST agree on TILE_P/BLOCK_L: every default below routes through
+# these two constants, and the window helpers take the same arguments as
+# the kernels.  Chosen by benchmarks/kernel_sweep.py on an H100 (PERF.md
+# "Kernel decisions"): small tiles keep the gradient tiers' temporaries in
+# registers (64x32 spilled: 2x slower; 128x32 10x), and two pipeline
+# stages overlap the next block's loads with the current block's math.
+DEFAULT_TILE_P = 32
+DEFAULT_BLOCK_L = 16
+_NUM_WARPS = 4
+_NUM_STAGES = 2
+# Output rows contracted by multiply-and-sum (the primal's absorption and
+# emission rows); larger row counts go through 16-row dot chunks (Triton's
+# dot needs every dimension >= 16).
+_SUM_ROWS = 4
+_ROW_CHUNK = 16
 
 # Block-level region-IV elision threshold: region IV needs
 # y < 0.195|x| - 0.176 with |x| + y < 5.5, so its y is < 0.8965; a block
 # whose min(y) >= 0.9 (margin for f32 slop) provably has no region-IV
 # pair and dispatches to the transcendental-free 3-region evaluator
 # (bit-identical there — see ops.voigt.wofz_humlicek4).
-_Y4_MIN = float(_os.environ.get("SPECTROBOT_Y4_MIN", "0.9"))
+_Y4_MIN = 0.9
 
 
 def _wr_region1(x, y):
@@ -177,6 +115,15 @@ def _wr_region2(x, y):
     return (nr * dr + ni * di) * inv
 
 
+def _dispatch(s_min, y_min, far, mid, near3, near):
+    """Run the tier selected by the block bounds: far (region 1 only), mid
+    (regions 1/2), near3 (no region IV) or near (full w4).  Nested boolean
+    conds: each lowers to one uniform branch for the whole program."""
+    cond = jax.lax.cond
+    return cond(s_min >= 15.0, far, lambda: cond(
+        s_min >= 5.5, mid, lambda: cond(y_min >= _Y4_MIN, near3, near)))
+
+
 def _wr_tile(x, y, s_min, y_min):
     """Faddeeva real part for one (TILE_P x BLOCK_L) tile with block-level
     region dispatch on the conservative bound s >= s_min:
@@ -189,29 +136,23 @@ def _wr_tile(x, y, s_min, y_min):
       otherwise    : full branchless w4 (all four regions + complex exp)
 
     Each branch is EXACTLY what pointwise w4 selects in its regime, so
-    dispatch preserves bit parity.  s_min = gap*min(sx) + min(y) over the
-    block, computed by the CALLER from the tile/block extremes (sorted);
-    y_min = min(y) over the block (the _Y4_MIN elision bound).
-    """
-    def far(_):
+    dispatch preserves bit parity."""
+    def far():
         return _wr_region1(x, y)
 
-    def mid(_):
+    def mid():
         s = jnp.abs(x) + y
         return jnp.where(s >= 15.0, _wr_region1(x, y), _wr_region2(x, y))
 
-    def near3(_):
+    def near3():
         wr, _ = wofz_humlicek4(x, y, with_region4=False)
         return wr
 
-    def near(_):
+    def near():
         wr, _ = wofz_humlicek4(x, y)
         return wr
 
-    idx = jnp.where(s_min >= 15.0, 0,
-                    jnp.where(s_min >= 5.5, 1,
-                              jnp.where(y_min >= _Y4_MIN, 2, 3)))
-    return jax.lax.switch(idx, (far, mid, near3, near), None)
+    return _dispatch(s_min, y_min, far, mid, near3, near)
 
 
 def _wrg_region1(x, y):
@@ -256,11 +197,11 @@ def _basis_tile(x, y, s_min, y_min):
     dispatch as :func:`_wr_tile` — each tier computes the closed-form
     derivative OF the formula the primal uses there, so the analytic
     Jacobian is the exact derivative of the kernel forward."""
-    def far(_):
+    def far():
         K, kx, ky = _wrg_region1(x, y)
         return K, kx, x * kx, ky
 
-    def mid(_):
+    def mid():
         s = jnp.abs(x) + y
         K1, kx1, ky1 = _wrg_region1(x, y)
         K2, kx2, ky2 = _wrg_region2(x, y)
@@ -270,66 +211,149 @@ def _basis_tile(x, y, s_min, y_min):
         ky = jnp.where(m, ky1, ky2)
         return K, kx, x * kx, ky
 
-    def near3(_):
+    def near3():
         K, _, kx, ky = wofz_humlicek4_grad(x, y, with_region4=False)
         return K, kx, x * kx, ky
 
-    def near(_):
+    def near():
         K, _, kx, ky = wofz_humlicek4_grad(x, y)
         return K, kx, x * kx, ky
 
-    idx = jnp.where(s_min >= 15.0, 0,
-                    jnp.where(s_min >= 5.5, 1,
-                              jnp.where(y_min >= _Y4_MIN, 2, 3)))
-    return jax.lax.switch(idx, (far, mid, near3, near), None)
+    return _dispatch(s_min, y_min, far, mid, near3, near)
 
 
-def _kernel(nblk_ref, starts_ref, nu_ref, nuc_ref, sx_ref, y_ref, *rest,
-            cutoff: Optional[float], n_out: int, has_chi: bool = False):
-    """One (nu-tile, line-block) step.
+def _line_sum_kernel(starts_ref, counts_ref, act_ref, nu_ref, nuc_ref,
+                     sx_ref, y_ref, *rest, cutoff: Optional[float],
+                     n_basis: int, n_rows: int, block_l: int, has_chi: bool):
+    """One (state b, nu tile i) program.
 
-    nblk_ref/starts_ref: scalar-prefetch [n_tiles] int32 — per-tile count and
-    start of ACTIVE line blocks (blocks are pre-translated by the index map;
-    starts_ref is consumed by the index maps, not the body).
-    nu_ref: [TILE_P, 1]; nuc/sx/y_ref: [1, BLOCK_L]; amps_ref:
-    [n_out, BLOCK_L]; out_ref: [n_out, TILE_P].
+    starts/counts_ref: [n_tiles] int32 line-block window per tile;
+    act_ref: [B] int32 (0 = state whose coefficients are all zero: it
+    contributes exactly 0, so its loop runs no iterations — in a limb scan
+    the layers below each ray's tangent point are ~45 % of the (ray x
+    layer) rectangle).  nu_ref: [TILE_P]; nuc/sx/y(/chi)_ref: [Lp] lines of
+    state b; n_basis coefficient refs [n_rows, Lp]; out_ref [n_rows, TILE_P].
     """
     chb_ref = rest[0] if has_chi else None
-    amps_ref = rest[-2]
+    c_refs = rest[len(rest) - 1 - n_basis:-1]
     out_ref = rest[-1]
-    i = pl.program_id(0)
-    j = pl.program_id(1)
+    b = pl.program_id(0)
+    i = pl.program_id(1)
+    nu = nu_ref[...]
+    tile_p = nu.shape[0]
+    nu_lo, nu_hi = jnp.min(nu), jnp.max(nu)
+    start = starts_ref[i]
+    n_blk = jnp.where(act_ref[b] != 0, counts_ref[i], 0)
+    use_dot = n_rows > _SUM_ROWS
+    n_acc = n_rows // _ROW_CHUNK if use_dot else n_rows
 
-    @pl.when(j == 0)
-    def _init():
-        out_ref[:, :] = jnp.zeros_like(out_ref)
-
-    @pl.when(j < nblk_ref[i])
-    def _accum():
-        dnu = nu_ref[:, :] - nuc_ref[:, :]            # [TILE_P, BLOCK_L]
-        x = dnu * sx_ref[:, :]
-        y = jnp.broadcast_to(y_ref[:, :], x.shape)
-        # Block-level region dispatch (lines and grid both sorted):
-        np_ = nu_ref.shape[0]
-        gap = jnp.maximum(jnp.maximum(nuc_ref[0, 0] - nu_ref[np_ - 1, 0],
-                                      nu_ref[0, 0] - nuc_ref[0, nuc_ref.shape[1] - 1]),
-                          0.0)
-        y_min = jnp.min(y_ref[:, :])
-        s_min = gap * jnp.min(sx_ref[:, :]) + y_min
-        wr = _wr_tile(x, y, s_min, y_min)
+    def body(j, accs):
+        sl = pl.ds((start + j) * block_l, block_l)
+        nuc, sxv, yv = nuc_ref[sl], sx_ref[sl], y_ref[sl]
+        dnu = nu[:, None] - nuc[None, :]                 # [TILE_P, BLOCK_L]
+        x = dnu * sxv[None, :]
+        y = jnp.broadcast_to(yv[None, :], x.shape)
+        # Conservative block bound on s = |x| + y (lines and grid sorted).
+        gap = jnp.maximum(jnp.maximum(jnp.min(nuc) - nu_hi,
+                                      nu_lo - jnp.max(nuc)), 0.0)
+        y_min = jnp.min(yv)
+        s_min = gap * jnp.min(sxv) + y_min
+        if n_basis == 1:
+            basis = (_wr_tile(x, y, s_min, y_min),)
+        else:
+            basis = _basis_tile(x, y, s_min, y_min)
         if has_chi:
-            wr = wr * jnp.exp(-chb_ref[:, :] * jnp.maximum(
+            # Frozen-chi convention (ops/chi.py): chi scales every basis row.
+            ch = jnp.exp(-chb_ref[sl][None, :] * jnp.maximum(
                 jnp.abs(dnu) - CHI_DELTA1, 0.0))
+            basis = tuple(B * ch for B in basis)
         if cutoff is not None:
-            wr = jnp.where(jnp.abs(dnu) <= cutoff, wr, 0.0)
-        # Reduction over lines on the MXU:
-        # [n_out, BLOCK_L] x [TILE_P, BLOCK_L] -> [n_out, TILE_P]
-        out_ref[:, :] += jax.lax.dot_general(
-            amps_ref[:, :], wr,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_MM_PRECISION,
-        )
+            inside = jnp.abs(dnu) <= cutoff
+            basis = tuple(jnp.where(inside, B, 0.0) for B in basis)
+        out = []
+        for k in range(n_acc):
+            acc = accs[k]
+            for c_ref, B in zip(c_refs, basis):
+                if use_dot:
+                    # [CHUNK, BLOCK_L] x [TILE_P, BLOCK_L] -> [CHUNK, TILE_P]
+                    acc = acc + jax.lax.dot_general(
+                        c_ref[pl.ds(k * _ROW_CHUNK, _ROW_CHUNK), sl], B,
+                        dimension_numbers=(((1,), (1,)), ((), ())),
+                        preferred_element_type=jnp.float32,
+                        precision=jax.lax.Precision.HIGHEST)
+                else:
+                    acc = acc + jnp.sum(B * c_ref[k, sl][None, :], axis=1)
+            out.append(acc)
+        return tuple(out)
+
+    shape = (_ROW_CHUNK, tile_p) if use_dot else (tile_p,)
+    init = tuple(jnp.zeros(shape, jnp.float32) for _ in range(n_acc))
+    accs = jax.lax.fori_loop(0, n_blk, body, init)
+    for k, acc in enumerate(accs):
+        if use_dot:
+            out_ref[pl.ds(k * _ROW_CHUNK, _ROW_CHUNK), :] = acc
+        else:
+            out_ref[k, :] = acc
+
+
+@functools.partial(jax.jit, static_argnames=("tile_p", "block_l",
+                                             "cutoff_cm1", "interpret"))
+def _line_sum(nu_grid, nu_c, sx, y, coeffs, starts, counts, active,
+              chi_b=None, *, tile_p, block_l, cutoff_cm1, interpret):
+    """Pad and launch: nu_grid [P]; nu_c/sx/y(/chi_b) [B, L]; coeffs: a
+    tuple of 1 (primal) or 4 (basis) arrays [B, R, L]; starts/counts
+    [n_tiles] int32; active [B] int32.  Returns [B, R, P] float32.
+
+    Pad fills: grid points beyond P sit far above the data, lines beyond L
+    are zero-amplitude and "far" (huge scale_x / y) so block minima — the
+    dispatch bound — reflect only real lines.  Fills are data-relative
+    (traced max), so the invariants hold for any coordinate origin."""
+    P = nu_grid.shape[0]
+    B, L = nu_c.shape
+    R = coeffs[0].shape[1]
+    Pp = _round_up(max(P, tile_p), tile_p)
+    Lp = _round_up(max(L, block_l), block_l)
+    Rp = R if R <= _SUM_ROWS else _round_up(R, _ROW_CHUNK)
+    n_tiles = Pp // tile_p
+    far_nu = jnp.max(nu_grid).astype(jnp.float32) + 1e6
+    far_line = jnp.max(nu_c).astype(jnp.float32) + 1e7
+    nu_pad = jnp.full((Pp,), far_nu, jnp.float32).at[:P].set(
+        nu_grid.astype(jnp.float32))
+    padl = lambda a, fill: jnp.full((B, Lp), fill, jnp.float32).at[:, :L].set(
+        a.astype(jnp.float32))
+    padc = lambda C: jnp.zeros((B, Rp, Lp), jnp.float32).at[:, :R, :L].set(
+        C.astype(jnp.float32))
+    has_chi = chi_b is not None
+
+    table = pl.BlockSpec((n_tiles,), lambda b, i: (0,))
+    line = pl.BlockSpec((None, Lp), lambda b, i: (b, 0))
+    in_specs = [table, table, pl.BlockSpec((B,), lambda b, i: (0,)),
+                pl.BlockSpec((tile_p,), lambda b, i: (i,)), line, line, line]
+    ins = [jnp.asarray(starts, jnp.int32), jnp.asarray(counts, jnp.int32),
+           jnp.asarray(active, jnp.int32), nu_pad, padl(nu_c, far_line),
+           padl(sx, 1e6), padl(y, 1e6)]
+    if has_chi:
+        in_specs.append(line)
+        ins.append(padl(chi_b, 0.0))
+    in_specs += [pl.BlockSpec((None, Rp, Lp), lambda b, i: (b, 0, 0))] \
+        * len(coeffs)
+    ins += [padc(C) for C in coeffs]
+    kern = functools.partial(_line_sum_kernel, cutoff=cutoff_cm1,
+                             n_basis=len(coeffs), n_rows=Rp,
+                             block_l=block_l, has_chi=has_chi)
+    out = pl.pallas_call(
+        kern,
+        out_shape=jax.ShapeDtypeStruct((B, Rp, Pp), jnp.float32),
+        grid=(B, n_tiles),
+        in_specs=in_specs,
+        out_specs=pl.BlockSpec((None, Rp, tile_p), lambda b, i: (b, 0, i)),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=_NUM_WARPS,
+                                                 num_stages=_NUM_STAGES),
+        interpret=interpret,
+        name="voigt_line_sum" if len(coeffs) == 1 else "voigt_basis_sum",
+    )(*ins)
+    return out[:, :R, :P]
 
 
 def _block_windows(nu_host: np.ndarray, nuc_host: np.ndarray, tile_p: int,
@@ -362,16 +386,13 @@ def static_windows(nu_host: np.ndarray, nu0_host: np.ndarray, *,
     """Host-side ragged block windows for the JIT-COMPOSABLE kernel entry
     points: when the (static) grid and unshifted line centers are concrete
     at trace time — closure constants of a jitted forward, the common case
-    (retrieval.state.build_forward) — the per-tile [start, count) tables can
-    be baked in as compile-time constants, and the kernel skips every block
-    provably outside the wing cutoff instead of relying on region dispatch
-    to make it cheap (the MXU contractions still run for dispatched blocks;
-    skipping them is ~1.5-2x at production scale).
+    (retrieval.state.build_forward) — the per-tile [start, count) tables are
+    baked in as compile-time constants, and each program's loop visits only
+    the blocks that can reach its tile.
 
-    Pads exactly the way :func:`accumulate_pallas_jit` /
-    :func:`basis_contract_pallas_jit` pad (far fills), and widens the
-    window by ``shift_margin_cm1`` to cover any pressure shift, so results
-    stay bit-identical to the all-blocks evaluation (the in-kernel
+    Pads exactly the way :func:`_line_sum` pads (far fills), and widens
+    the window by ``shift_margin_cm1`` to cover any pressure shift, so
+    results stay bit-identical to the all-blocks evaluation (the in-kernel
     |dnu| <= cutoff mask is unchanged and exact).
 
     Returns (starts [n_tiles] int32, counts [n_tiles] int32, max_blocks).
@@ -392,178 +413,37 @@ def static_windows(nu_host: np.ndarray, nu0_host: np.ndarray, *,
     return starts, counts, max_blocks
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("max_blocks", "tile_p", "block_l", "cutoff_cm1",
-                     "interpret"))
-def _accumulate_padded(nu2d, nuc2d, sx2d, y2d, amps, starts, counts,
-                       *, max_blocks, tile_p, block_l, cutoff_cm1, interpret,
-                       chi2d=None):
-    n_out = amps.shape[0]
-    P = nu2d.shape[0]
-    n_tiles = P // tile_p
-    has_chi = chi2d is not None
-
-    grid = (n_tiles, int(max_blocks))
-
-    def nu_map(i, j, nblk, starts_ref):
-        return (i, 0)
-
-    def line_map(i, j, nblk, starts_ref):
-        # Translate the ragged window: block index = starts[i] + j, clamped.
-        return (0, jnp.minimum(starts_ref[i] + j,
-                               nuc2d.shape[1] // block_l - 1))
-
-    def amps_map(i, j, nblk, starts_ref):
-        return (0, jnp.minimum(starts_ref[i] + j,
-                               nuc2d.shape[1] // block_l - 1))
-
-    in_specs = [
-        pl.BlockSpec((tile_p, 1), nu_map),
-        pl.BlockSpec((1, block_l), line_map),
-        pl.BlockSpec((1, block_l), line_map),
-        pl.BlockSpec((1, block_l), line_map),
-    ]
-    ins = [nu2d, nuc2d, sx2d, y2d]
-    if has_chi:
-        in_specs.append(pl.BlockSpec((1, block_l), line_map))
-        ins.append(chi2d)
-    in_specs.append(pl.BlockSpec((n_out, block_l), amps_map))
-    ins.append(amps)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((n_out, tile_p), lambda i, j, *_: (0, i)),
-    )
-    kern = functools.partial(_kernel, cutoff=cutoff_cm1, n_out=n_out,
-                             has_chi=has_chi)
-    out = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((n_out, P), jnp.float32),
-        grid_spec=grid_spec,
-        compiler_params=_cparams(1, 2),
-        interpret=interpret,
-    )(counts, starts, *ins)
-    return out
+def _window_tables(P: int, L: int, tile_p: int, block_l: int, windows):
+    """(starts, counts) from ``windows`` = (starts, counts, max_blocks) —
+    baked constants or traced per-shard tables — or all-blocks if None."""
+    if windows is None:
+        n_tiles = _round_up(max(P, tile_p), tile_p) // tile_p
+        n_blocks = _round_up(max(L, block_l), block_l) // block_l
+        return (jnp.zeros((n_tiles,), jnp.int32),
+                jnp.full((n_tiles,), n_blocks, jnp.int32))
+    st, ct = windows[0], windows[1]
+    return jnp.asarray(st, jnp.int32), jnp.asarray(ct, jnp.int32)
 
 
-def _batch_kernel(nblk_ref, starts_ref, act_ref, nu_ref, nuc_ref, sx_ref,
-                  y_ref, *rest, cutoff: Optional[float],
-                  n_out: int, sub_blocks: int = 1, has_chi: bool = False):
-    """Batched variant: one batch element (ray x layer) per leading grid dim.
+def accumulate_pallas_batch_jit(nu_grid, nu_c, sx, y, amps, *,
+                                tile_p: int = DEFAULT_TILE_P,
+                                block_l: int = DEFAULT_BLOCK_L,
+                                cutoff_cm1: Optional[float] = 25.0,
+                                interpret: bool = False,
+                                windows=None,
+                                chi_b=None) -> jnp.ndarray:
+    """Batched stage-2 accumulation, jit-composable (all inputs may be
+    traced): nu_c/sx/y [B, L], amps [B, n_out, L] -> [B, n_out, P] float32.
 
-    nu_ref: [TILE_P, 1]; nuc/sx/y_ref: [1, 1, BLOCK_L]; amps_ref:
-    [1, n_out, BLOCK_L]; out_ref: [1, n_out, TILE_P].  ``act_ref`` [B] marks
-    states with ANY nonzero amplitude: a zero-amplitude state contributes
-    exactly 0 to every output element, so skipping its accumulation is
-    bit-exact — and in a limb scan the layers below each ray's tangent
-    point (zero chord length, hence zero column) are ~45 % of the (ray x
-    layer) rectangle.
-
-    ``sub_blocks``: dispatch sub-slices per DMA block (module note at
-    DEFAULT_SUB_BLOCKS) — statically unrolled; each slice gets its own
-    conservative region bound and its own MXU contraction.
-    """
-    chb_ref = rest[0] if has_chi else None
-    amps_ref = rest[-2]
-    out_ref = rest[-1]
-    b = pl.program_id(0)
-    i = pl.program_id(1)
-    j = pl.program_id(2)
-
-    @pl.when(j == 0)
-    def _init():
-        out_ref[0, :, :] = jnp.zeros_like(out_ref)[0]
-
-    @pl.when(jnp.logical_and(j < nblk_ref[i], act_ref[b] != 0))
-    def _accum():
-        np_ = nu_ref.shape[0]
-        BL = nuc_ref.shape[2]
-        SBL = BL // sub_blocks
-        for k in range(sub_blocks):
-            sl = slice(k * SBL, (k + 1) * SBL)
-            nuc = nuc_ref[0, :, sl]                    # [1, SBL]
-            sxv = sx_ref[0, :, sl]
-            yv = y_ref[0, :, sl]
-            dnu = nu_ref[:, :] - nuc                   # [TILE_P, SBL]
-            x = dnu * sxv
-            y = jnp.broadcast_to(yv, x.shape)
-            gap = jnp.maximum(
-                jnp.maximum(nuc[0, 0] - nu_ref[np_ - 1, 0],
-                            nu_ref[0, 0] - nuc[0, SBL - 1]), 0.0)
-            y_min = jnp.min(yv)
-            s_min = gap * jnp.min(sxv) + y_min
-            wr = _wr_tile(x, y, s_min, y_min)
-            if has_chi:
-                wr = wr * jnp.exp(-chb_ref[0, :, sl] * jnp.maximum(
-                    jnp.abs(dnu) - CHI_DELTA1, 0.0))
-            if cutoff is not None:
-                wr = jnp.where(jnp.abs(dnu) <= cutoff, wr, 0.0)
-            out_ref[0, :, :] += jax.lax.dot_general(
-                amps_ref[0, :, sl], wr,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=_MM_PRECISION,
-            )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("max_blocks", "tile_p", "block_l", "cutoff_cm1",
-                     "interpret", "sub_blocks"))
-def _accumulate_batch_padded(nu2d, nuc, sx, y, amps, starts, counts, active,
-                             *, max_blocks, tile_p, block_l, cutoff_cm1,
-                             interpret, sub_blocks=1, chi=None):
-    """nuc/sx/y: [B, Lp]; amps: [B, n_out, Lp]; nu2d: [Pp, 1]; active: [B]
-    int32 (0 = state provably all-zero, skipped).  Returns [B, n_out, Pp]."""
-    B, Lp = nuc.shape
-    n_out = amps.shape[1]
-    Pp = nu2d.shape[0]
-    n_tiles = Pp // tile_p
-    n_blocks = Lp // block_l
-    has_chi = chi is not None
-    grid = (B, n_tiles, int(max_blocks))
-
-    def nu_map(b, i, j, nblk, st, act):
-        return (i, 0)
-
-    def line_map(b, i, j, nblk, st, act):
-        # Dead states pin the block index so the revisit check suppresses
-        # their DMAs (one copy per state instead of one per window step).
-        return (b, 0, jnp.where(act[b] != 0,
-                                jnp.minimum(st[i] + j, n_blocks - 1), 0))
-
-    in_specs = [
-        pl.BlockSpec((tile_p, 1), nu_map),
-        pl.BlockSpec((1, 1, block_l), line_map),
-        pl.BlockSpec((1, 1, block_l), line_map),
-        pl.BlockSpec((1, 1, block_l), line_map),
-    ]
-    ins = [nu2d, nuc.reshape(B, 1, Lp), sx.reshape(B, 1, Lp),
-           y.reshape(B, 1, Lp)]
-    if has_chi:
-        in_specs.append(pl.BlockSpec((1, 1, block_l), line_map))
-        ins.append(chi.reshape(B, 1, Lp))
-    in_specs.append(pl.BlockSpec((1, n_out, block_l), line_map))
-    ins.append(amps)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((1, n_out, tile_p),
-                               lambda b, i, j, *_: (b, 0, i)),
-    )
-    kern = functools.partial(_batch_kernel, cutoff=cutoff_cm1,
-                             n_out=n_out, sub_blocks=sub_blocks,
-                             has_chi=has_chi)
-    return pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((B, n_out, Pp), jnp.float32),
-        grid_spec=grid_spec,
-        compiler_params=_cparams(2, 3),
-        interpret=interpret,
-    )(counts, starts, active, *ins)
+    ``windows`` = (starts, counts, max_blocks) ragged block tables from
+    :func:`static_windows` (constant or traced); default visits every
+    block.  All-zero states are skipped in-kernel (bit-exact)."""
+    starts, counts = _window_tables(nu_grid.shape[0], nu_c.shape[1], tile_p,
+                                    block_l, windows)
+    active = jnp.any(amps != 0, axis=(1, 2)).astype(jnp.int32)
+    return _line_sum(nu_grid, nu_c, sx, y, (amps,), starts, counts, active,
+                     chi_b, tile_p=tile_p, block_l=block_l,
+                     cutoff_cm1=cutoff_cm1, interpret=interpret)
 
 
 def accumulate_pallas_batch(
@@ -581,316 +461,61 @@ def accumulate_pallas_batch(
     interpret: bool = False,
     chi_b=None,
 ) -> jnp.ndarray:
-    """Batched stage-2 accumulation: nu_c/scale_x/y [B, L], amps
-    [B, n_out, L] -> [B, n_out, P] float32.  ``chi_b`` [B, L]: optional
-    sub-Lorentzian wing slopes (ops.chi; 0/None = off).
+    """Batched stage-2 accumulation with host-known windows: nu_c/scale_x/y
+    [B, L], amps [B, n_out, L] -> [B, n_out, P] float32.  ``chi_b`` [B, L]:
+    optional sub-Lorentzian wing slopes (ops.chi; 0/None = off).
 
     The block windows are computed ONCE from the host-known UNSHIFTED line
     centers ``nu0_host`` (sorted, C1), widened by ``shift_margin_cm1`` to
     cover any pressure shift, and shared across the batch — the in-kernel
     |dnu| <= cutoff mask does the exact per-element windowing, so results
-    match the jnp path to roundoff.  States whose amplitudes are ALL zero
-    (dead limb layers below the tangent point) are skipped in-kernel
-    (bit-exact: their contribution is exactly 0 either way).
+    match the jnp path to roundoff.
     """
-    nu_host = np.asarray(nu_grid, dtype=np.float32)
-    nu0_host = np.asarray(nu0_host, dtype=np.float32)
-    P = len(nu_host)
-    B, L = nu_c.shape
-    n_out = int(amps.shape[1])
-
-    Pp = _round_up(max(P, tile_p), tile_p)
-    Lp = _round_up(max(L, block_l), block_l)
-    big = (nu_host.max() if P else 0.0) + 1e6
-    nu_pad = np.full(Pp, big, dtype=np.float32)
-    nu_pad[:P] = nu_host
-    far = (nu0_host.max() if L else 0.0) + 1e7
-    nu0_pad = np.full(Lp, far, dtype=np.float32)
-    nu0_pad[:L] = nu0_host
-
-    win_cut = None if cutoff_cm1 is None else cutoff_cm1 + shift_margin_cm1
-    starts, counts = _block_windows(nu_pad, nu0_pad, tile_p, block_l, win_cut)
-    max_blocks = max(int(counts.max()) if counts.size else 1, 1)
-
-    def padl(a, fill):
-        out = jnp.full((B, Lp), fill, dtype=jnp.float32)
-        return out.at[:, :L].set(a.astype(jnp.float32))
-
-    nu2d = jnp.asarray(nu_pad).reshape(Pp, 1)
-    amps_p = jnp.zeros((B, n_out, Lp), jnp.float32).at[:, :, :L].set(
-        amps.astype(jnp.float32))
-    active = jnp.any(amps != 0, axis=(1, 2)).astype(jnp.int32)
-    out = _accumulate_batch_padded(
-        nu2d, padl(nu_c, far), padl(scale_x, 1e6), padl(y, 1e6), amps_p,
-        jnp.asarray(starts), jnp.asarray(counts), active,
-        max_blocks=max_blocks, tile_p=tile_p, block_l=block_l,
-        cutoff_cm1=cutoff_cm1, interpret=interpret,
-        sub_blocks=DEFAULT_SUB_BLOCKS,
-        chi=None if chi_b is None else padl(chi_b, 0.0))
-    return out[:, :, :P]
+    windows = static_windows(np.asarray(nu_grid), nu0_host, tile_p=tile_p,
+                             block_l=block_l, cutoff_cm1=cutoff_cm1,
+                             shift_margin_cm1=shift_margin_cm1)
+    return accumulate_pallas_batch_jit(
+        nu_grid, nu_c, scale_x, y, amps, tile_p=tile_p, block_l=block_l,
+        cutoff_cm1=cutoff_cm1, interpret=interpret, windows=windows,
+        chi_b=chi_b)
 
 
-def accumulate_pallas_batch_jit(nu_grid, nu_c, sx, y, amps, *,
-                                tile_p: int = DEFAULT_TILE_P,
-                                block_l: int = DEFAULT_BLOCK_L,
-                                cutoff_cm1: Optional[float] = 25.0,
-                                interpret: bool = False,
-                                windows=None,
-                                chi_b=None) -> jnp.ndarray:
-    """Batched stage-2 accumulation, jit-composable (all inputs may be
-    traced): nu_c/sx/y [B, L], amps [B, n_out, L] -> [B, n_out, P] float32.
-
-    The batch analog of :func:`spectrobot_tpu.ops.opacity.
-    accumulate_pallas_jit`: padding is jnp (trace-safe), ``windows`` =
-    (starts, counts, max_blocks) bakes ragged block tables in (constant or
-    traced; max_blocks must be a python int), and all-zero states are
-    skipped in-kernel (bit-exact — see :func:`_batch_kernel`)."""
-    P = nu_grid.shape[0]
-    B, L = nu_c.shape
-    n_out = amps.shape[1]
-    Pp = _round_up(max(P, tile_p), tile_p)
-    Lp = _round_up(max(L, block_l), block_l)
-    far_nu = jnp.max(nu_grid).astype(jnp.float32) + 1e6
-    far_line = jnp.max(nu_c).astype(jnp.float32) + 1e7
-    nu_pad = jnp.full((Pp,), far_nu, jnp.float32).at[:P].set(
-        nu_grid.astype(jnp.float32))
-    padl = lambda a, fill: jnp.full((B, Lp), fill, jnp.float32).at[:, :L].set(
-        a.astype(jnp.float32))
-    amps_p = jnp.zeros((B, n_out, Lp), jnp.float32).at[:, :, :L].set(
-        amps.astype(jnp.float32))
-    n_tiles = Pp // tile_p
-    n_blocks = Lp // block_l
-    if windows is None:
-        starts = jnp.zeros((n_tiles,), jnp.int32)
-        counts = jnp.full((n_tiles,), n_blocks, jnp.int32)
-        max_blocks = n_blocks
-    else:
-        st, ct, max_blocks = windows
-        starts = jnp.asarray(st, jnp.int32)
-        counts = jnp.asarray(ct, jnp.int32)
-    active = jnp.any(amps != 0, axis=(1, 2)).astype(jnp.int32)
-    out = _accumulate_batch_padded(
-        nu_pad.reshape(Pp, 1), padl(nu_c, far_line), padl(sx, 1e6),
-        padl(y, 1e6), amps_p, starts, counts, active,
-        max_blocks=int(max_blocks), tile_p=tile_p, block_l=block_l,
-        cutoff_cm1=cutoff_cm1, interpret=interpret,
-        sub_blocks=DEFAULT_SUB_BLOCKS,
-        chi=None if chi_b is None else padl(chi_b, 0.0))
-    return out[:, :, :P]
+def accumulate_pallas(
+    nu_grid: jnp.ndarray,
+    kl: KernelLines,
+    *,
+    tile_p: int = DEFAULT_TILE_P,
+    block_l: int = DEFAULT_BLOCK_L,
+    cutoff_cm1: Optional[float] = 25.0,
+    interpret: bool = False,
+) -> jnp.ndarray:
+    """Single-state stage-2 accumulation with windows from the (host-known,
+    already shifted) line centers: [n_out, P] float32.  Call outside jit."""
+    out = accumulate_pallas_batch(
+        nu_grid, np.asarray(kl.nu_c), kl.nu_c[None], kl.scale_x[None],
+        kl.y[None], kl.amps[None], tile_p=tile_p, block_l=block_l,
+        cutoff_cm1=cutoff_cm1, shift_margin_cm1=0.0, interpret=interpret,
+        chi_b=None if kl.chi_b is None else kl.chi_b[None])
+    return out[0]
 
 
 # ---------------------------------------------------------------------------
-# Fused analytic-Jacobian basis kernel (VERDICT.md round-1 item 4)
+# Fused analytic-Jacobian basis
 # ---------------------------------------------------------------------------
 #
 # The analytic tangent of the line sum decomposes over the four
 # tangent-independent basis functions {K, Kx, xKx, Ky} contracted with
 # per-line coefficient rows (ops/opacity.py "analytic custom JVP" notes).
-# This kernel evaluates the four basis matrices IN-TILE — with the same
-# 3-tier region dispatch as the forward kernel, each tier differentiating
-# exactly the formula the primal uses — and contracts all of them against
-# four coefficient inputs in one pass:
+# The kernel evaluates the four basis tiles in registers — with the same
+# tier dispatch as the primal, each tier differentiating exactly the
+# formula the primal uses — and contracts all of them against four
+# coefficient inputs in one pass:
 #
 #     out[r, p] = sum_i ( C1[r,i] K + C2[r,i] Kx + C3[r,i] xKx + C4[r,i] Ky )
 #
 # The row axis r carries EVERY Jacobian column at once (r = tangent x
-# spectrum), so the expensive basis evaluation is paid once per Jacobian,
-# and the per-tangent cost is four MXU matmuls.
-
-
-def _basis_kernel(nblk_ref, starts_ref, nu_ref, nuc_ref, sx_ref, y_ref,
-                  *rest, cutoff: Optional[float], has_chi: bool = False):
-    """One (nu-tile, line-block) step of the fused basis contraction.
-
-    nu_ref: [TILE_P, 1]; nuc/sx/y_ref: [1, BLOCK_L]; c*_ref: [R, BLOCK_L];
-    out_ref: [R, TILE_P].
-    """
-    chb_ref = rest[0] if has_chi else None
-    c1_ref, c2_ref, c3_ref, c4_ref, out_ref = rest[-5:]
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        out_ref[:, :] = jnp.zeros_like(out_ref)
-
-    @pl.when(j < nblk_ref[i])
-    def _accum():
-        dnu = nu_ref[:, :] - nuc_ref[:, :]            # [TILE_P, BLOCK_L]
-        x = dnu * sx_ref[:, :]
-        y = jnp.broadcast_to(y_ref[:, :], x.shape)
-        np_ = nu_ref.shape[0]
-        gap = jnp.maximum(jnp.maximum(nuc_ref[0, 0] - nu_ref[np_ - 1, 0],
-                                      nu_ref[0, 0] - nuc_ref[0, nuc_ref.shape[1] - 1]),
-                          0.0)
-        y_min = jnp.min(y_ref[:, :])
-        s_min = gap * jnp.min(sx_ref[:, :]) + y_min
-        K, Kx, xKx, Ky = _basis_tile(x, y, s_min, y_min)
-        if has_chi:
-            # Frozen-chi convention (ops/chi.py): chi scales all basis rows.
-            ch = jnp.exp(-chb_ref[:, :] * jnp.maximum(
-                jnp.abs(dnu) - CHI_DELTA1, 0.0))
-            K, Kx, xKx, Ky = K * ch, Kx * ch, xKx * ch, Ky * ch
-        if cutoff is not None:
-            m = (jnp.abs(dnu) <= cutoff).astype(x.dtype)
-            K, Kx, xKx, Ky = K * m, Kx * m, xKx * m, Ky * m
-        dot = lambda C, B: jax.lax.dot_general(
-            C, B, dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_MM_PRECISION)
-        if _MERGED_DOT:
-            out_ref[:, :] += dot(
-                jnp.concatenate([c1_ref[:, :], c2_ref[:, :], c3_ref[:, :],
-                                 c4_ref[:, :]], axis=1),
-                jnp.concatenate([K, Kx, xKx, Ky], axis=1))
-        else:
-            out_ref[:, :] += (dot(c1_ref[:, :], K) + dot(c2_ref[:, :], Kx)
-                              + dot(c3_ref[:, :], xKx) + dot(c4_ref[:, :], Ky))
-
-
-def _basis_batch_kernel(nblk_ref, starts_ref, act_ref, nu_ref, nuc_ref,
-                        sx_ref, y_ref, *rest, cutoff: Optional[float],
-                        sub_blocks: int = 1, has_chi: bool = False):
-    """Batched fused basis contraction: one (ray x layer) state per leading
-    grid dim.  nuc/sx/y_ref: [1, 1, BLOCK_L]; c*_ref: [1, R, BLOCK_L];
-    out_ref: [1, R, TILE_P].  ``act_ref`` [B]: states whose coefficient
-    rows are ALL zero contribute exactly 0 and are skipped (bit-exact; the
-    dead-limb-layer economics of :func:`_batch_kernel`).  ``sub_blocks``:
-    statically unrolled dispatch sub-slices per DMA block (module note at
-    DEFAULT_SUB_BLOCKS)."""
-    chb_ref = rest[0] if has_chi else None
-    c1_ref, c2_ref, c3_ref, c4_ref, out_ref = rest[-5:]
-    b = pl.program_id(0)
-    i = pl.program_id(1)
-    j = pl.program_id(2)
-
-    @pl.when(j == 0)
-    def _init():
-        out_ref[0, :, :] = jnp.zeros_like(out_ref)[0]
-
-    @pl.when(jnp.logical_and(j < nblk_ref[i], act_ref[b] != 0))
-    def _accum():
-        np_ = nu_ref.shape[0]
-        BL = nuc_ref.shape[2]
-        SBL = BL // sub_blocks
-        for k in range(sub_blocks):
-            sl = slice(k * SBL, (k + 1) * SBL)
-            nuc = nuc_ref[0, :, sl]
-            sxv = sx_ref[0, :, sl]
-            yv = y_ref[0, :, sl]
-            dnu = nu_ref[:, :] - nuc
-            x = dnu * sxv
-            y = jnp.broadcast_to(yv, x.shape)
-            gap = jnp.maximum(
-                jnp.maximum(nuc[0, 0] - nu_ref[np_ - 1, 0],
-                            nu_ref[0, 0] - nuc[0, SBL - 1]), 0.0)
-            y_min = jnp.min(yv)
-            s_min = gap * jnp.min(sxv) + y_min
-            if "novoigt" in _ABLATE:
-                K, Kx, xKx, Ky = x, x, x, x
-            else:
-                K, Kx, xKx, Ky = _basis_tile(x, y, s_min, y_min)
-            if has_chi:
-                # Frozen-chi: scales all basis rows (ops/chi.py).
-                ch = jnp.exp(-chb_ref[0, :, sl] * jnp.maximum(
-                    jnp.abs(dnu) - CHI_DELTA1, 0.0))
-                K, Kx, xKx, Ky = K * ch, Kx * ch, xKx * ch, Ky * ch
-            if cutoff is not None:
-                m = (jnp.abs(dnu) <= cutoff).astype(x.dtype)
-                K, Kx, xKx, Ky = K * m, Kx * m, xKx * m, Ky * m
-            if "nodot" in _ABLATE:
-                out_ref[0, :, :] += jnp.sum(K + Kx + xKx + Ky)
-                continue
-            dot = lambda C, B: jax.lax.dot_general(
-                C, B, dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=_MM_PRECISION)
-            if _MERGED_DOT:
-                out_ref[0, :, :] += dot(
-                    jnp.concatenate([c1_ref[0, :, sl], c2_ref[0, :, sl],
-                                     c3_ref[0, :, sl], c4_ref[0, :, sl]],
-                                    axis=1),
-                    jnp.concatenate([K, Kx, xKx, Ky], axis=1))
-            else:
-                out_ref[0, :, :] += (dot(c1_ref[0, :, sl], K)
-                                     + dot(c2_ref[0, :, sl], Kx)
-                                     + dot(c3_ref[0, :, sl], xKx)
-                                     + dot(c4_ref[0, :, sl], Ky))
-
-
-def basis_contract_pallas_jit(nu_grid, nu_c, sx, y, C1, C2, C3, C4,
-                              *, tile_p: int = DEFAULT_TILE_P, block_l: int = DEFAULT_BLOCK_L,
-                              cutoff_cm1: Optional[float] = 25.0,
-                              interpret: bool = False,
-                              windows=None, chi_b=None) -> jnp.ndarray:
-    """Fused basis contraction, jit-composable (single state).
-
-    nu_c/sx/y: [L]; C1..C4: [R, L].  Returns [R, P] float32.  By default
-    every line block is visited for every tile (static all-blocks windows,
-    like :func:`spectrobot_tpu.ops.opacity.accumulate_pallas_jit`); the
-    in-kernel cutoff mask and block-level region dispatch do the skipping
-    work.  ``windows`` = (starts, counts, max_blocks) ragged windows —
-    starts/counts may be np arrays (baked constants) or TRACED arrays
-    (per-shard tables selected inside a shard_map body); only
-    ``max_blocks`` must be a python int (it sizes the pallas grid).
-    """
-    P = nu_grid.shape[0]
-    L = nu_c.shape[0]
-    R = C1.shape[0]
-    Pp = _round_up(max(P, tile_p), tile_p)
-    Lp = _round_up(max(L, block_l), block_l)
-    far_nu = jnp.max(nu_grid).astype(jnp.float32) + 1e6
-    far_line = jnp.max(nu_c).astype(jnp.float32) + 1e7
-    nu_pad = jnp.full((Pp,), far_nu, jnp.float32).at[:P].set(
-        nu_grid.astype(jnp.float32))
-    padl = lambda a, fill: jnp.full((Lp,), fill, jnp.float32).at[:L].set(
-        a.astype(jnp.float32))
-    padc = lambda C: jnp.zeros((R, Lp), jnp.float32).at[:, :L].set(
-        C.astype(jnp.float32))
-    n_tiles = Pp // tile_p
-    n_blocks = Lp // block_l
-    if windows is None:
-        starts = jnp.zeros((n_tiles,), jnp.int32)
-        counts = jnp.full((n_tiles,), n_blocks, jnp.int32)
-        max_blocks = n_blocks
-    else:
-        st, ct, max_blocks = windows
-        starts = jnp.asarray(st, jnp.int32)
-        counts = jnp.asarray(ct, jnp.int32)
-
-    def line_map(i, j, nblk, st):
-        return (0, jnp.minimum(st[i] + j, n_blocks - 1))
-
-    has_chi = chi_b is not None
-    in_specs = [
-        pl.BlockSpec((tile_p, 1), lambda i, j, *_: (i, 0)),
-        pl.BlockSpec((1, block_l), line_map),
-        pl.BlockSpec((1, block_l), line_map),
-        pl.BlockSpec((1, block_l), line_map),
-    ]
-    ins = [nu_pad.reshape(Pp, 1), padl(nu_c, far_line).reshape(1, Lp),
-           padl(sx, 1e6).reshape(1, Lp), padl(y, 1e6).reshape(1, Lp)]
-    if has_chi:
-        in_specs.append(pl.BlockSpec((1, block_l), line_map))
-        ins.append(padl(chi_b, 0.0).reshape(1, Lp))
-    in_specs += [pl.BlockSpec((R, block_l), line_map)] * 4
-    ins += [padc(C1), padc(C2), padc(C3), padc(C4)]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_tiles, int(max_blocks)),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((R, tile_p), lambda i, j, *_: (0, i)),
-    )
-    kern = functools.partial(_basis_kernel, cutoff=cutoff_cm1,
-                             has_chi=has_chi)
-    out = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((R, Pp), jnp.float32),
-        grid_spec=grid_spec,
-        compiler_params=_cparams(1, 2),
-        interpret=interpret,
-    )(counts, starts, *ins)
-    return out[:, :P]
+# spectrum), so the expensive basis evaluation is paid once per Jacobian
+# and never written to device memory.
 
 
 def basis_contract_pallas_batch_jit(nu_grid, nu_c, sx, y, C1, C2, C3, C4,
@@ -903,313 +528,32 @@ def basis_contract_pallas_batch_jit(nu_grid, nu_c, sx, y, C1, C2, C3, C4,
     """Batched fused basis contraction, jit-composable.
 
     nu_c/sx/y: [B, L]; C1..C4: [B, R, L].  Returns [B, R, P] float32.
-    ``windows``: ragged windows, constant or traced (single-state
-    docstring).  ``active`` [B] (int32; 0 = skip): states whose FOUR
-    coefficient inputs are all zero produce exactly 0 and are skipped
-    in-kernel; default derives the mask from C1..C4 on device (callers who
-    know a cheaper sufficient statistic — e.g. the tangent fold, where
-    C2..C4 are amps-scaled so cat(amps, C1) covers everything — pass it).
+    ``windows``: ragged windows, constant or traced (see
+    :func:`accumulate_pallas_batch_jit`).  ``active`` [B] (int32; 0 =
+    skip): states whose FOUR coefficient inputs are all zero produce
+    exactly 0 and are skipped in-kernel; default derives the mask from
+    C1..C4 on device (callers who know a cheaper sufficient statistic —
+    e.g. the tangent fold, where C2..C4 are amps-scaled so cat(amps, C1)
+    covers everything — pass it).
     """
-    P = nu_grid.shape[0]
-    B, L = nu_c.shape
-    R = C1.shape[1]
-    Pp = _round_up(max(P, tile_p), tile_p)
-    Lp = _round_up(max(L, block_l), block_l)
-    far_nu = jnp.max(nu_grid).astype(jnp.float32) + 1e6
-    far_line = jnp.max(nu_c).astype(jnp.float32) + 1e7
-    nu_pad = jnp.full((Pp,), far_nu, jnp.float32).at[:P].set(
-        nu_grid.astype(jnp.float32))
-    padl = lambda a, fill: jnp.full((B, Lp), fill, jnp.float32).at[:, :L].set(
-        a.astype(jnp.float32))
-    padc = lambda C: jnp.zeros((B, R, Lp), jnp.float32).at[:, :, :L].set(
-        C.astype(jnp.float32))
-    n_tiles = Pp // tile_p
-    n_blocks = Lp // block_l
-    if windows is None:
-        starts = jnp.zeros((n_tiles,), jnp.int32)
-        counts = jnp.full((n_tiles,), n_blocks, jnp.int32)
-        max_blocks = n_blocks
-    else:
-        st, ct, max_blocks = windows
-        starts = jnp.asarray(st, jnp.int32)
-        counts = jnp.asarray(ct, jnp.int32)
-
+    starts, counts = _window_tables(nu_grid.shape[0], nu_c.shape[1], tile_p,
+                                    block_l, windows)
     if active is None:
         nz = lambda C: jnp.any(C != 0, axis=(1, 2))
-        active = (nz(C1) | nz(C2) | nz(C3) | nz(C4)).astype(jnp.int32)
-    else:
-        active = jnp.asarray(active, jnp.int32)
-
-    def line_map(b, i, j, nblk, st, act):
-        # Dead states pin the block index (suppresses their DMAs).
-        return (b, 0, jnp.where(act[b] != 0,
-                                jnp.minimum(st[i] + j, n_blocks - 1), 0))
-
-    has_chi = chi_b is not None
-    in_specs = [
-        pl.BlockSpec((tile_p, 1), lambda b, i, j, *_: (i, 0)),
-        pl.BlockSpec((1, 1, block_l), line_map),
-        pl.BlockSpec((1, 1, block_l), line_map),
-        pl.BlockSpec((1, 1, block_l), line_map),
-    ]
-    ins = [nu_pad.reshape(Pp, 1), padl(nu_c, far_line).reshape(B, 1, Lp),
-           padl(sx, 1e6).reshape(B, 1, Lp), padl(y, 1e6).reshape(B, 1, Lp)]
-    if has_chi:
-        in_specs.append(pl.BlockSpec((1, 1, block_l), line_map))
-        ins.append(padl(chi_b, 0.0).reshape(B, 1, Lp))
-    in_specs += [pl.BlockSpec((1, R, block_l), line_map)] * 4
-    ins += [padc(C1), padc(C2), padc(C3), padc(C4)]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(B, n_tiles, int(max_blocks)),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((1, R, tile_p), lambda b, i, j, *_: (b, 0, i)),
-    )
-    kern = functools.partial(_basis_batch_kernel, cutoff=cutoff_cm1,
-                             sub_blocks=DEFAULT_SUB_BLOCKS,
-                             has_chi=has_chi)
-    out = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((B, R, Pp), jnp.float32),
-        grid_spec=grid_spec,
-        compiler_params=_cparams(2, 3),
-        interpret=interpret,
-    )(counts, starts, active, *ins)
-    return out[:, :, :P]
+        active = nz(C1) | nz(C2) | nz(C3) | nz(C4)
+    return _line_sum(nu_grid, nu_c, sx, y, (C1, C2, C3, C4), starts, counts,
+                     jnp.asarray(active, jnp.int32), chi_b, tile_p=tile_p,
+                     block_l=block_l, cutoff_cm1=cutoff_cm1,
+                     interpret=interpret)
 
 
-def _tile_windows(nu_host: np.ndarray, nuc_host: np.ndarray, tile_p: int,
-                  block_l: int, cutoff: Optional[float]) -> Tuple[np.ndarray, np.ndarray]:
-    """Transpose of :func:`_block_windows`: for each LINE BLOCK, the
-    [start, count) of nu TILES it can reach given the wing cutoff."""
-    n_tiles = len(nu_host) // tile_p
-    n_blocks = len(nuc_host) // block_l
-    if cutoff is None:
-        return (np.zeros(n_blocks, dtype=np.int32),
-                np.full(n_blocks, n_tiles, dtype=np.int32))
-    blk_min = nuc_host.reshape(n_blocks, block_l).min(axis=1)
-    blk_max = nuc_host.reshape(n_blocks, block_l).max(axis=1)
-    tile_lo = nu_host.reshape(n_tiles, tile_p).min(axis=1)
-    tile_hi = nu_host.reshape(n_tiles, tile_p).max(axis=1)
-    starts = np.searchsorted(tile_hi, blk_min - cutoff, side="left")
-    ends = np.searchsorted(tile_lo, blk_max + cutoff, side="right")
-    starts = np.minimum(starts, n_tiles).astype(np.int32)
-    counts = np.maximum(ends - starts, 0).astype(np.int32)
-    return starts, counts
-
-
-def static_windows_T(nu_host: np.ndarray, nu0_host: np.ndarray, *,
-                     tile_p: int = DEFAULT_TILE_P, block_l: int = DEFAULT_BLOCK_L,
-                     cutoff_cm1: Optional[float] = 25.0,
-                     shift_margin_cm1: float = 1.0):
-    """Per-BLOCK tile windows for the transpose kernel (same padding and
-    margin conventions as :func:`static_windows`).  Returns (starts
-    [n_blocks], counts [n_blocks], max_tiles)."""
-    nu_host = np.asarray(nu_host, np.float32)
-    nu0_host = np.asarray(nu0_host, np.float32)
-    P, L = len(nu_host), len(nu0_host)
-    Pp = _round_up(max(P, tile_p), tile_p)
-    Lp = _round_up(max(L, block_l), block_l)
-    nu_pad = np.full(Pp, (nu_host.max() if P else 0.0) + 1e6, np.float32)
-    nu_pad[:P] = nu_host
-    nu0_pad = np.full(Lp, (nu0_host.max() if L else 0.0) + 1e7, np.float32)
-    nu0_pad[:L] = nu0_host
-    win_cut = None if cutoff_cm1 is None else cutoff_cm1 + shift_margin_cm1
-    starts, counts = _tile_windows(nu_pad, nu0_pad, tile_p, block_l, win_cut)
-    max_tiles = max(int(counts.max()) if counts.size else 1, 1)
-    return starts, counts, max_tiles
-
-
-def _basis_transpose_kernel(ntile_ref, starts_ref, nu_ref, nuc_ref, sx_ref,
-                            y_ref, *rest, cutoff: Optional[float],
-                            has_chi: bool = False):
-    """One (line-block, nu-tile) step of the TRANSPOSED basis contraction:
-
-        o*[r, l] += sum_p ct[r, p] * Basis*[p, l]
-
-    — the cotangent projections <ct, K>, <ct, Kx>, <ct, xKx>, <ct, Ky> that
-    reverse-mode AD needs (ops.opacity._tangent_transpose algebra), with the
-    basis evaluated IN-KERNEL and the per-block output accumulating in VMEM
-    across its tile window.  nu_ref: [TILE_P, 1]; nuc/sx/y_ref:
-    [1, BLOCK_L]; ct_ref: [R, TILE_P]; o*_ref: [R, BLOCK_L].
-    """
-    chb_ref = rest[0] if has_chi else None
-    ct_ref, oK_ref, oKx_ref, oxKx_ref, oKy_ref = rest[-5:]
-    j = pl.program_id(0)
-    i = pl.program_id(1)
-
-    @pl.when(i == 0)
-    def _init():
-        oK_ref[:, :] = jnp.zeros_like(oK_ref)
-        oKx_ref[:, :] = jnp.zeros_like(oKx_ref)
-        oxKx_ref[:, :] = jnp.zeros_like(oxKx_ref)
-        oKy_ref[:, :] = jnp.zeros_like(oKy_ref)
-
-    @pl.when(i < ntile_ref[j])
-    def _accum():
-        dnu = nu_ref[:, :] - nuc_ref[:, :]            # [TILE_P, BLOCK_L]
-        x = dnu * sx_ref[:, :]
-        y = jnp.broadcast_to(y_ref[:, :], x.shape)
-        np_ = nu_ref.shape[0]
-        gap = jnp.maximum(jnp.maximum(nuc_ref[0, 0] - nu_ref[np_ - 1, 0],
-                                      nu_ref[0, 0] - nuc_ref[0, nuc_ref.shape[1] - 1]),
-                          0.0)
-        y_min = jnp.min(y_ref[:, :])
-        s_min = gap * jnp.min(sx_ref[:, :]) + y_min
-        K, Kx, xKx, Ky = _basis_tile(x, y, s_min, y_min)
-        if has_chi:
-            # Frozen-chi: scales all basis rows (ops/chi.py).
-            ch = jnp.exp(-chb_ref[:, :] * jnp.maximum(
-                jnp.abs(dnu) - CHI_DELTA1, 0.0))
-            K, Kx, xKx, Ky = K * ch, Kx * ch, xKx * ch, Ky * ch
-        if cutoff is not None:
-            m = (jnp.abs(dnu) <= cutoff).astype(x.dtype)
-            K, Kx, xKx, Ky = K * m, Kx * m, xKx * m, Ky * m
-        # [R, TILE_P] x [TILE_P, BLOCK_L] -> [R, BLOCK_L] on the MXU.
-        dot = lambda B: jax.lax.dot_general(
-            ct_ref[:, :], B, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=_MM_PRECISION)
-        oK_ref[:, :] += dot(K)
-        oKx_ref[:, :] += dot(Kx)
-        oxKx_ref[:, :] += dot(xKx)
-        oKy_ref[:, :] += dot(Ky)
-
-
-def basis_transpose_pallas_jit(nu_grid, nu_c, sx, y, ct,
-                               *, tile_p: int = DEFAULT_TILE_P, block_l: int = DEFAULT_BLOCK_L,
-                               cutoff_cm1: Optional[float] = 25.0,
-                               interpret: bool = False,
-                               windows_T=None, chi_b=None):
-    """Transposed fused basis contraction, jit-composable (single state).
-
-    nu_c/sx/y: [L]; ct: [R, P].  Returns (AbK, AbKx, AbxKx, AbKy), each
-    [R, L] float32 — the cotangent-basis projections reverse-mode AD
-    contracts into (nu_c, sx, y, amps) cotangents (a cheap jnp epilogue).
-    ``windows_T`` (hashable, from :func:`static_windows_T`) skips tiles a
-    block provably cannot reach; default visits every tile.
-    """
-    P = nu_grid.shape[0]
-    L = nu_c.shape[0]
-    R = ct.shape[0]
-    Pp = _round_up(max(P, tile_p), tile_p)
-    Lp = _round_up(max(L, block_l), block_l)
-    far_nu = jnp.max(nu_grid).astype(jnp.float32) + 1e6
-    far_line = jnp.max(nu_c).astype(jnp.float32) + 1e7
-    nu_pad = jnp.full((Pp,), far_nu, jnp.float32).at[:P].set(
-        nu_grid.astype(jnp.float32))
-    padl = lambda a, fill: jnp.full((Lp,), fill, jnp.float32).at[:L].set(
-        a.astype(jnp.float32))
-    ct_pad = jnp.zeros((R, Pp), jnp.float32).at[:, :P].set(
-        ct.astype(jnp.float32))
-    n_tiles = Pp // tile_p
-    n_blocks = Lp // block_l
-    if windows_T is None:
-        starts = jnp.zeros((n_blocks,), jnp.int32)
-        counts = jnp.full((n_blocks,), n_tiles, jnp.int32)
-        max_tiles = n_tiles
-    else:
-        st, cnt, max_tiles = windows_T
-        starts = jnp.asarray(st, jnp.int32)
-        counts = jnp.asarray(cnt, jnp.int32)
-
-    def tile_map(j, i, ntl, st):
-        return (jnp.minimum(st[j] + i, n_tiles - 1), 0)
-
-    def ct_map(j, i, ntl, st):
-        return (0, jnp.minimum(st[j] + i, n_tiles - 1))
-
-    def line_map(j, i, ntl, st):
-        return (0, j)
-
-    has_chi = chi_b is not None
-    in_specs = [
-        pl.BlockSpec((tile_p, 1), tile_map),
-        pl.BlockSpec((1, block_l), line_map),
-        pl.BlockSpec((1, block_l), line_map),
-        pl.BlockSpec((1, block_l), line_map),
-    ]
-    ins = [nu_pad.reshape(Pp, 1), padl(nu_c, far_line).reshape(1, Lp),
-           padl(sx, 1e6).reshape(1, Lp), padl(y, 1e6).reshape(1, Lp)]
-    if has_chi:
-        in_specs.append(pl.BlockSpec((1, block_l), line_map))
-        ins.append(padl(chi_b, 0.0).reshape(1, Lp))
-    in_specs.append(pl.BlockSpec((R, tile_p), ct_map))
-    ins.append(ct_pad)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_blocks, int(max_tiles)),
-        in_specs=in_specs,
-        out_specs=[pl.BlockSpec((R, block_l), lambda j, i, *_: (0, j))] * 4,
-    )
-    kern = functools.partial(_basis_transpose_kernel, cutoff=cutoff_cm1,
-                             has_chi=has_chi)
-    shp = jax.ShapeDtypeStruct((R, Lp), jnp.float32)
-    outs = pl.pallas_call(
-        kern,
-        out_shape=[shp, shp, shp, shp],
-        grid_spec=grid_spec,
-        compiler_params=_cparams(1, 2),
-        interpret=interpret,
-    )(counts, starts, *ins)
-    return tuple(o[:, :L] for o in outs)
-
-
-def accumulate_pallas(
-    nu_grid: jnp.ndarray,
-    kl: KernelLines,
-    *,
-    tile_p: int = DEFAULT_TILE_P,
-    block_l: int = DEFAULT_BLOCK_L,
-    cutoff_cm1: Optional[float] = 25.0,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Stage-2 accumulation via the Pallas TPU kernel.  Returns [n_out, P]
-    float32.  Host-side prep: pad P to tile_p and L to block_l; compute the
-    per-tile block windows from the (already sorted) line centers.
-
-    Note: the block-window computation needs concrete line centers, so this
-    entry point is meant to be called OUTSIDE jit with host-known nu/nu_c
-    (the returned computation itself is jitted); layer batches go through
-    ``accumulate_pallas_batch``.
-    """
-    nu_host = np.asarray(nu_grid, dtype=np.float32)
-    nuc_host = np.asarray(kl.nu_c, dtype=np.float32)
-    P, L = len(nu_host), len(nuc_host)
-    n_out = int(kl.amps.shape[0])
-
-    Pp = _round_up(max(P, tile_p), tile_p)
-    Lp = _round_up(max(L, block_l), block_l)
-    # Pad: grid beyond P gets a far-away wavenumber so windows exclude it;
-    # lines beyond L get zero amplitude.
-    big = (nu_host.max() if P else 0.0) + 1e6
-    nu_pad = np.full(Pp, big, dtype=np.float32)
-    nu_pad[:P] = nu_host
-    far = (nuc_host.max() if L else 0.0) + 1e7
-    nuc_pad = np.full(Lp, far, dtype=np.float32)
-    nuc_pad[:L] = nuc_host
-
-    starts, counts = _block_windows(nu_pad, nuc_pad, tile_p, block_l,
-                                    cutoff_cm1)
-    max_blocks = int(counts.max()) if counts.size else 1
-    max_blocks = max(max_blocks, 1)
-
-    def pad_line(a, fill=0.0):
-        out = jnp.full((Lp,), fill, dtype=jnp.float32)
-        return out.at[:L].set(a.astype(jnp.float32))
-
-    nu2d = jnp.asarray(nu_pad).reshape(Pp, 1)
-    nuc2d = pad_line(kl.nu_c, far).reshape(1, Lp)
-    # Pad fills are FAR lines (huge sx/y) so block minima reflect real lines
-    # and the region-dispatch bound stays tight; amps are 0 so they add 0.
-    sx2d = pad_line(kl.scale_x, 1e6).reshape(1, Lp)
-    y2d = pad_line(kl.y, 1e6).reshape(1, Lp)
-    amps = jnp.zeros((n_out, Lp), jnp.float32).at[:, :L].set(
-        kl.amps.astype(jnp.float32))
-
-    out = _accumulate_padded(
-        nu2d, nuc2d, sx2d, y2d, amps,
-        jnp.asarray(starts), jnp.asarray(counts), max_blocks=max_blocks,
-        tile_p=tile_p, block_l=block_l, cutoff_cm1=cutoff_cm1,
-        interpret=interpret)
-    return out[:, :P]                                 # [n_out, P]
+def basis_contract_pallas_jit(nu_grid, nu_c, sx, y, C1, C2, C3, C4,
+                              *, windows=None, chi_b=None,
+                              **kw) -> jnp.ndarray:
+    """Fused basis contraction for one state: nu_c/sx/y [L], C1..C4 [R, L]
+    -> [R, P] float32 (the batch kernel with B = 1)."""
+    out = basis_contract_pallas_batch_jit(
+        nu_grid, nu_c[None], sx[None], y[None], C1[None], C2[None],
+        C3[None], C4[None], windows=windows,
+        chi_b=None if chi_b is None else chi_b[None], **kw)
+    return out[0]

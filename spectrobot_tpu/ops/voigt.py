@@ -2,7 +2,7 @@
 
 The reference (fedef17/SpectRobot) evaluates Voigt profiles through a Fortran
 Humlicek routine or ``scipy.special.wofz`` (SURVEY.md C5, 1.2).  Here the
-TPU-native equivalents are branch-FREE evaluators built on real-pair complex
+equivalents here are branch-FREE evaluators built on real-pair complex
 arithmetic (:mod:`spectrobot_tpu.ops.cpx`) so the identical math runs as pure
 jnp (tests, reference path) and inside the Pallas opacity kernel (hot path,
 SURVEY.md 8.3):

@@ -11,7 +11,7 @@ form:
   neighbouring shard's chunk (its wing crosses the boundary).  Instead of a
   line-axis psum (O(n_shards) traffic, parallel/sharded.py), each shard
   exchanges its line PARAMETERS with its two ring neighbours via
-  ``lax.ppermute`` — neighbour-only ICI traffic, independent of ring size —
+  ``lax.ppermute`` — neighbour-only traffic, independent of ring size —
   and accumulates (own + left + right) lines on its local chunk with the
   usual |dnu| <= cutoff mask.  XLA schedules the permutes asynchronously,
   overlapping them with the local (bulk) accumulation — the ring-attention
@@ -19,10 +19,8 @@ form:
 * Exactness requires cutoff <= chunk width (a wing reaches at most the
   adjacent shard); asserted host-side.
 
-The in-kernel ``pltpu.make_async_remote_copy`` variant (device-initiated
-RDMA inside the Pallas kernel) is the next optimisation tier; this
-collective-permute form is mathematically identical and testable on the
-CPU-emulated mesh (SURVEY.md 5.4).
+On GPUs XLA hands the permutes to NCCL (NVLink within a host); the same
+code runs on the CPU-emulated mesh in the tests (SURVEY.md 5.4).
 """
 
 from __future__ import annotations
@@ -207,8 +205,8 @@ def halo_accumulate_pallas_fn(
     nu_host: np.ndarray,
     skl_nu0: np.ndarray,
     *,
-    tile_p: int = 256,
-    block_l: int = 256,
+    tile_p: Optional[int] = None,
+    block_l: Optional[int] = None,
     cutoff_cm1: Optional[float] = 25.0,
     interpret: bool = False,
 ):
@@ -220,12 +218,16 @@ def halo_accumulate_pallas_fn(
     layout, pads at +1e9).  Per-(shard, source) ragged block windows are
     precomputed HOST-side: each shard needs windows against its own lines
     and against each ring neighbour's line block (which arrives via
-    ppermute); scalar-prefetch tables ship as sharded arrays.
+    ppermute); the window tables ship as sharded arrays.
 
     Returns f(nu_grid, skl) -> [n_out, P] (out sharded over 'nu').
     """
     from spectrobot_tpu.ops.pallas_opacity import (
-        _accumulate_padded, _block_windows, _round_up)
+        DEFAULT_BLOCK_L, DEFAULT_TILE_P, _block_windows, _round_up,
+        accumulate_pallas_batch_jit)
+
+    tile_p = DEFAULT_TILE_P if tile_p is None else tile_p
+    block_l = DEFAULT_BLOCK_L if block_l is None else block_l
 
     n_shards = mesh.shape["nu"]
     P_ = len(nu_host)
@@ -256,18 +258,13 @@ def halo_accumulate_pallas_fn(
     left = [(i, (i - 1) % n_shards) for i in range(n_shards)]
 
     def body(nu_loc, nu_c, sx, y, amps, st_loc, ct_loc):
-        nu2d = nu_loc.reshape(P_loc, 1).astype(jnp.float32)
-
         def acc(src_idx, arrs):
             nc, s, yy, am = arrs
-            return _accumulate_padded(
-                nu2d, nc.reshape(1, Lmax).astype(jnp.float32),
-                s.reshape(1, Lmax).astype(jnp.float32),
-                yy.reshape(1, Lmax).astype(jnp.float32),
-                am.astype(jnp.float32),
-                st_loc[0, src_idx], ct_loc[0, src_idx],
-                max_blocks=max_blocks, tile_p=tile_p, block_l=block_l,
-                cutoff_cm1=cutoff_cm1, interpret=interpret)
+            return accumulate_pallas_batch_jit(
+                nu_loc, nc[None], s[None], yy[None], am[None],
+                windows=(st_loc[0, src_idx], ct_loc[0, src_idx], max_blocks),
+                tile_p=tile_p, block_l=block_l, cutoff_cm1=cutoff_cm1,
+                interpret=interpret)[0]
 
         mine = (nu_c[0], sx[0], y[0], amps[0])
         out = acc(0, mine)
@@ -304,7 +301,7 @@ def nu_shard_edges(nu_host: np.ndarray, n_shards: int,
     reachable straight from a TOML file: ``compute.mesh_halo`` on a grid
     narrower than ``mesh_nu * cutoff`` would let line wings cross BEYOND
     the adjacent shard, which the one-hop ring exchange cannot see
-    (VERDICT r3 weak item 6).
+    (round-3 review weak item 6).
     """
     P_ = len(nu_host)
     if P_ % n_shards != 0:

@@ -1,8 +1,8 @@
 """Device-mesh construction (component C20, SURVEY.md).
 
 The reference (fedef17/SpectRobot) has NO distributed backend — a Python
-``multiprocessing`` pool at most (SURVEY.md C19/C20).  The TPU-native
-equivalent is the JAX runtime over ICI/DCN: a named mesh with three axes,
+``multiprocessing`` pool at most (SURVEY.md C19/C20).  The
+equivalent here is the JAX runtime over the device interconnect: a named mesh with three axes,
 
     ray  — data parallelism over tangent heights / pixels  (C21)
     nu   — spectral-domain decomposition of the fine grid  (C22, the
@@ -15,8 +15,8 @@ sequential structure — stages fuse instead.
 
 Multi-host: initialise with ``jax.distributed.initialize()`` before building
 the mesh; axis order below puts ``nu`` innermost so its halo/psum traffic
-rides ICI within a slice while ``ray`` (pure DP, no communication inside a
-step) spans DCN across hosts.
+rides the fast in-host links (NVLink) while ``ray`` (pure DP, no communication inside a
+step) spans the network across hosts.
 """
 
 from __future__ import annotations
@@ -55,7 +55,9 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     """Initialise the multi-host JAX runtime (DCN tier, SURVEY.md section 6).
 
     Call ONCE per process before any mesh construction; with no arguments
-    the TPU pod environment variables drive discovery.  After this,
+    the cluster environment variables drive discovery (on a GPU host
+    without a cluster manager pass coordinator_address, num_processes and
+    process_id).  After this,
     ``jax.devices()`` spans the whole slice and :func:`make_mesh` shapes can
     use every chip — no other code changes (the collectives in
     parallel/sharded.py, halo.py and retrieval.py are axis-name based).

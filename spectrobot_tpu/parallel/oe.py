@@ -1,16 +1,17 @@
 """Sharded OE/LM retrieval: the production distributed-inversion path
 (C26 integrated with C16, SURVEY.md 4.2; BASELINE.json:5 "assembling
-analytic Jacobians for the OE/LM retrieval loop via ICI allgather").
+analytic Jacobians for the OE/LM retrieval loop" via allgather, which XLA
+hands to NCCL on GPUs).
 
 The reference (fedef17/SpectRobot spect_main_module LM driver [SURVEY.md
-1.2]) is single-node; this module is the TPU-native replacement: the
+1.2]) is single-node; this module is the distributed replacement: the
 forward model runs under ``shard_map`` on the (ray, line, nu) mesh
 (parallel/sharded.py), the analytic Jacobian is obtained by LINEARISING the
 sharded forward once per iteration and scanning unit tangents through the
 linearised program (the shared Voigt basis of ops/opacity.py is evaluated
-once; each column is an MXU contraction), and the LM normal equations are
+once; each column is one contraction), and the LM normal equations are
 assembled on-device with ONE psum over the measurement-sharded axes
-(parallel/retrieval.sharded_normal_equations) — O(n_x^2) ICI traffic per
+(parallel/retrieval.sharded_normal_equations) — O(n_x^2) traffic per
 shard, independent of the measurement count.  The full Jacobian matrix is
 materialised only when diagnostics ask for it, via
 ``lax.all_gather`` (parallel/retrieval.allgather_jacobian).
@@ -51,7 +52,7 @@ class ShardedOE:
     forward_flat(x) -> y        sharded forward, flat measurement vector
     normal_eqs(x)   -> (F, H, g)  F = forward, H = K^T Se^-1 K (psum over
                                   the mesh), g = K^T Se^-1 (y - F)
-    jacobian(x)     -> K        full [n_y, n_x] via ICI all_gather
+    jacobian(x)     -> K        full [n_y, n_x] via all_gather
     """
 
     def __init__(self, forward_flat, normal_eqs, jacobian, n_x: int,
@@ -136,14 +137,14 @@ def make_sharded_oe(
     is padded (or, with ``nu_halo``, owner-partitioned) here.
 
     ``engine='pallas'`` runs the opacity stage — primal AND the fused
-    analytic-Jacobian basis — on the C5/C6 TPU kernel inside the shard_map
-    body (VERDICT.md round-2 item 1); ``interpret=True`` for CPU meshes.
+    analytic-Jacobian basis — on the C5/C6 GPU kernel inside the shard_map
+    body (round-2 review item 1); ``interpret=True`` for CPU meshes.
     ``nu_halo=True`` uses the owner-shard + ring-halo line distribution
     (parallel/sharded.py module docstring).  ``cia`` (ops.cia.DeviceCIA)
     adds the collision-induced continuum inside the mesh forward.
 
     Geometry: limb when ``tangent_heights_m`` is given, NADIR when
-    ``sec_theta``/``T_surface`` are (VERDICT.md round-2 item 8 — 'ray'
+    ``sec_theta``/``T_surface`` are (round-2 review item 8 — 'ray'
     shards pixels); ``state_template`` may carry "T_surface" to retrieve
     it.  ``fov_V`` [n_obs, n_ray] smears the fine tangent-height ladder
     into observed fields of view (C14) — like the ILS across 'nu', the FOV
@@ -286,9 +287,9 @@ def make_sharded_oe(
         tangent vmap, so the analytic custom-JVP Voigt basis is evaluated
         once for the whole Jacobian (primal out_axes=None asserts that), and
         with engine='pallas' the custom_vmap rule of the fused tangent
-        kernel folds every column into the kernel's MXU row axis
+        kernel folds every column into the kernel's row axis
         (ops.opacity._make_tangent_pallas) — the round-2 fused-basis
-        economics now running THROUGH the mesh (VERDICT.md round-2 item 1;
+        economics now running THROUGH the mesh (round-2 review item 1;
         vmap-over-shard_map batches the body, supported since JAX 0.9)."""
         eye = jnp.eye(n_x, dtype=x.dtype)
         F, KT = jax.vmap(lambda v: jax.jvp(lambda xx: model(xx, *staged),

@@ -5,7 +5,7 @@ the (ray, nu) mesh axes.  The LM normal equations need global
 
     H = K^T Se^-1 K   [n_x, n_x],     b = K^T Se^-1 r   [n_x]
 
-Two assembly strategies, both over ICI:
+Two assembly strategies, both collectives:
 
 * :func:`sharded_normal_equations` — each shard contracts its local rows
   (K_s^T Se_s^-1 K_s, K_s^T Se_s^-1 r_s) and ONE psum over the mesh axes
@@ -13,7 +13,7 @@ Two assembly strategies, both over ICI:
   the production path (cheaper than moving K).
 * :func:`allgather_jacobian` — materialise the full K on every shard with
   ``lax.all_gather`` (BASELINE.json:5 "assembling analytic Jacobians ... via
-  ICI allgather"): needed when the full matrix itself is the product
+  allgather"): needed when the full matrix itself is the product
   (averaging kernels, posterior covariance diagnostics).
 """
 
@@ -37,7 +37,7 @@ def sharded_normal_equations(mesh: Mesh, axes: Tuple[str, ...] = ("ray", "nu")):
     def body(K, r, inv_se):
         KtSe = K.T * inv_se[None, :]
         # HIGHEST: the normal equations carry condition numbers ~1e6+; the
-        # TPU default bf16 matmul precision would corrupt them outright
+        # reduced default matmul precision (TF32 on a GPU) would corrupt them
         # (see ops/opacity.py round-1 hardening notes).
         hp = dict(precision=jax.lax.Precision.HIGHEST)
         H_loc = jnp.matmul(KtSe, K, **hp)
@@ -55,7 +55,7 @@ def sharded_normal_equations(mesh: Mesh, axes: Tuple[str, ...] = ("ray", "nu")):
 
 def allgather_jacobian(mesh: Mesh, axes: Tuple[str, ...] = ("ray", "nu")):
     """Build f(K_local_rows) -> full K replicated on every shard via
-    all_gather over ICI (C26's literal form)."""
+    all_gather (C26's literal form)."""
 
     def body(K):
         # Gather the minor (innermost) axis first so the row order of the

@@ -1,5 +1,5 @@
 """Sharded (P, T) LUT runtime (C9 x C20-C22 — the last cell of the
-feature x mesh matrix, VERDICT.md round-2 missing item 3).
+feature x mesh matrix, round-2 review missing item 3).
 
 The LUT tier has no line axis at all — the tables are line sums already —
 so its natural decomposition is exactly two mesh axes:

@@ -2,7 +2,7 @@
 
 The reference (fedef17/SpectRobot ``spect_main_module`` obs/pixel classes
 [SURVEY.md 1.2]) carries observed spectra, noise and geometry per pixel with
-spectral masks/windows.  TPU-native design: one :class:`Observation` of
+spectral masks/windows.  Design: one :class:`Observation` of
 dense [n_ray, n_chan] arrays; masking is encoded as INFINITE noise (weight
 zero) so shapes stay static under jit — excluded channels simply do not
 contribute to chi^2 or the normal equations, and the degrees-of-freedom
@@ -99,7 +99,7 @@ class Observation:
 
     @staticmethod
     def load_table(path: str) -> "Observation":
-        """Read a campaign-style TEXT observation table (VERDICT.md round-1
+        """Read a campaign-style TEXT observation table (round-1 review
         item 8 — pointing the framework at real data needs no code).
 
         Format: one sample per row, comma- or whitespace-separated, in

@@ -1,8 +1,8 @@
 """Optimal-estimation / Levenberg-Marquardt inversion (C16, SURVEY.md 4.2).
 
 The reference (fedef17/SpectRobot ``spect_main_module`` LM driver [SURVEY.md
-1.2]) iterates forward + Jacobian to fit limb-scan spectra.  TPU-native
-design: the LM ITERATION (solve, chi^2, lambda bookkeeping) is a pure jitted
+1.2]) iterates forward + Jacobian to fit limb-scan spectra.  Design: the LM
+ITERATION (solve, chi^2, lambda bookkeeping) is a pure jitted
 function of (x, K, F, lambda); the OUTER loop runs on the host because each
 iteration's Jacobian is a fresh device computation and convergence control is
 control flow the host does better (SURVEY.md C16: "host-orchestrated loop;
@@ -47,7 +47,7 @@ class RetrievalResult:
     dof: float                   # degrees of freedom for signal, tr(A)
     history: List[Dict]          # per-iteration records
     K: np.ndarray                # final Jacobian
-    # WHY the loop stopped (honest convergence reporting, VERDICT.md
+    # WHY the loop stopped (honest convergence reporting, the review
     # round-2 weak item 7): "d2_tol" / "chi2_tol" (converged), "max_iter"
     # (budget exhausted — chi2 may still have been improving; see
     # history[-1]["accepted"]), "lambda_max" (LM stalled: no damping
@@ -87,7 +87,7 @@ def _lm_step(x, K, F, y, x_a, inv_se_diag, S_a_inv, lam):
 
     Done in FLOAT64 NUMPY on the host: the normal equations routinely carry
     condition numbers ~1e6+, and a float32 on-device solve produces garbage
-    steps (observed: |dx| ~ 4000 K on a TPU f32 retrieval that converges in
+    steps (observed: |dx| ~ 4000 K on an accelerator f32 retrieval that converges in
     3 iterations in f64).  The solve is O(n_x^2) — microseconds next to the
     device-side forward/Jacobian (SURVEY.md C16 "host-orchestrated loop").
     """
@@ -130,13 +130,13 @@ def retrieve(
     (parallel/oe.py): each LM iteration then moves only O(n_x^2) numbers to
     the host and never materialises K.  ``jacobian`` is still used ONCE
     after convergence for the posterior/averaging-kernel diagnostics (the
-    sharded path passes its ICI all_gather Jacobian there).
+    sharded path passes its all_gather Jacobian there).
 
     state_check: optional x -> str | None, called on every ACCEPTED state;
     a returned message is warned and logged ("physics_warning" record) but
     does not stop the loop — the hook the CLI uses to flag LM steps that
     walk the temperature outside the partition-sum table range, where the
-    device path clamps silently (VERDICT.md round-1 weak item 5).
+    device path clamps silently (round-1 review weak item 5).
     """
     inv_se = np.asarray(1.0 / np.asarray(noise_sigma, np.float64) ** 2)
     S_a = np.asarray(S_a, np.float64)

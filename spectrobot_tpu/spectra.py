@@ -3,7 +3,7 @@ classes in ``spect_classes`` — grid + intensity / transmittance / optical
 depth / absorption & emission coefficient, with arithmetic and
 instrument-line-shape convolution).
 
-TPU-native design: ONE registered pytree class :class:`Spectrum` holding a
+Design: ONE registered pytree class :class:`Spectrum` holding a
 wavenumber grid and a (possibly batched) value array, with the physical
 ``kind`` carried as STATIC aux data.  Because it is a pytree, a Spectrum
 flows through ``jax.jit`` / ``vmap`` / ``grad`` unchanged — arithmetic and
@@ -22,7 +22,7 @@ Kinds and units (wavenumber convention: cm^-1 everywhere):
 Conversions implement the reference's SpectralObject semantics:
 ``optical_depth.to_transmittance()`` (exp(-tau)), its inverse, radiance ->
 brightness temperature, trapezoid band integration, regridding, and ILS
-channelisation through :mod:`spectrobot_tpu.ops.ils` (an MXU matmul).
+channelisation through :mod:`spectrobot_tpu.ops.ils` (one matmul).
 """
 
 from __future__ import annotations
@@ -199,7 +199,7 @@ class Spectrum:
                      cutoff_fwhm: float = 6.0) -> "Spectrum":
         """ILS channelisation: convolve with the instrument line shape and
         resample to instrument channels (reference SpectralObject
-        convolution; ops/ils.py matmul — MXU path, differentiable).
+        convolution; ops/ils.py matmul — differentiable).
 
         Requires a CONCRETE grid (the ILS matrix is built host-side);
         build outside jit or close over the returned matrix.

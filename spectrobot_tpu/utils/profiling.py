@@ -1,11 +1,10 @@
 """Tracing / profiling utilities (SURVEY.md section 6).
 
 The reference (fedef17/SpectRobot) has no profiling beyond prints; here the
-TPU-native story is the JAX profiler: ``trace()`` captures an XProf/
-TensorBoard trace of everything inside the context (kernels, collectives,
-host overhead), ``annotate`` names physics stages so traces read as
-opacity -> RT -> ILS instead of HLO soup, and ``kernel_roofline`` prints
-arithmetic-intensity context for the opacity kernel.
+story is the JAX profiler: ``trace()`` captures an XProf/TensorBoard trace
+of everything inside the context (kernels, collectives, host overhead), and
+``annotate`` names physics stages so traces read as opacity -> RT -> ILS
+instead of HLO soup.
 """
 
 from __future__ import annotations
@@ -40,23 +39,3 @@ def stopwatch(label: str, sink=None) -> Iterator[None]:
         sink.log({"stage": label, "wall_s": dt})
     else:
         print(f"[stopwatch] {label}: {dt:.3f}s", file=sys.stderr)
-
-
-def kernel_roofline(n_pairs: float, wall_s: float,
-                    flops_per_pair: float = 60.0,
-                    bytes_per_pair: float = 0.08) -> dict:
-    """Roofline context for the opacity kernel.
-
-    Defaults: ~60 flops/pair amortised (region-dispatched Humlicek: most
-    pairs take the 12-flop region-1 branch, near-core pairs ~300), and
-    ~0.08 B/pair of HBM traffic (line params + output tiles amortised over
-    BLOCK_L x TILE_P reuse — the kernel is strongly compute-bound by
-    design: VMEM-resident accumulation, MXU reduction).
-    """
-    return {
-        "pairs_per_s": n_pairs / wall_s,
-        "est_gflops": n_pairs * flops_per_pair / wall_s / 1e9,
-        "est_gbytes": n_pairs * bytes_per_pair / wall_s / 1e9,
-        "arithmetic_intensity_flops_per_byte":
-            flops_per_pair / bytes_per_pair,
-    }

@@ -1,4 +1,4 @@
-"""Sub-Lorentzian chi wing-correction hook (VERDICT r4 item 9).
+"""Sub-Lorentzian chi wing-correction hook (round-4 review item 9).
 
 Contract: default OFF is bit-identical; with ``lines.chi = "co2_mars"``
 the Perrin-Hartmann first-segment factor applies per line (species-masked,

@@ -1,4 +1,4 @@
-"""Collision-induced absorption / continuum hook (VERDICT.md round-1 item 7)."""
+"""Collision-induced absorption / continuum hook (round-1 review item 7)."""
 
 import numpy as np
 
@@ -132,7 +132,7 @@ def test_cli_cia_config(tmp_path):
 
 
 def test_cia_sharded_matches_single_device():
-    """CIA x mesh (VERDICT.md round-2 item 6): the continuum is additive
+    """CIA x mesh (round-2 review item 6): the continuum is additive
     per (ray, layer, nu) with no line data, so its tables shard over 'nu'
     and the sharded forward must match the single-device continuum forward
     to f64 roundoff on the 8-device emulated mesh."""
@@ -165,7 +165,7 @@ def test_cia_sharded_matches_single_device():
 
 
 # ---------------------------------------------------------------------------
-# Genuine-format .cia block parsing (VERDICT r3 item 5)
+# Genuine-format .cia block parsing (round-3 review item 5)
 # ---------------------------------------------------------------------------
 # Hand-typed in the authentic HITRAN .cia layout (header line: pair label,
 # nu_min, nu_max, n_points, temperature, max_cia, then n_points "nu k"

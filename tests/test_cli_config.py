@@ -375,7 +375,7 @@ retrieve_temperature = false
 
 
 def test_cli_retrieve_from_obs_table(tmp_path, capsys):
-    """End-to-end VERDICT.md round-1 item 8: forward -> dump a campaign-style
+    """End-to-end round-1 review item 8: forward -> dump a campaign-style
     text table -> retrieve from that file through retrieval.obs_path."""
     import numpy as np
     from spectrobot_tpu.cli import main
@@ -457,7 +457,7 @@ max_iter = 8
 
 
 def test_cli_retrieve_lut_runtime(tmp_path, capsys):
-    """compute.use_lut must be honoured by cmd_retrieve (VERDICT.md round-2
+    """compute.use_lut must be honoured by cmd_retrieve (round-2 review
     item 4): the LUT retrieval converges and lands within LUT interpolation
     error of the direct line-by-line retrieval."""
     from spectrobot_tpu.cli import main
@@ -510,7 +510,7 @@ def test_cli_mesh_lut_runtime(tmp_path, capsys):
 
 
 def test_cli_forward_nadir_mesh(tmp_path, capsys):
-    """Nadir x mesh through the CLI (VERDICT.md round-2 item 8)."""
+    """Nadir x mesh through the CLI (round-2 review item 8)."""
     from spectrobot_tpu.cli import main
     base = f"""
 [grid]
@@ -584,7 +584,7 @@ mesh_nu = 2
 
 
 def test_cli_fov_retrieval(tmp_path, capsys):
-    """[instrument] FOV smearing reachable from the config (VERDICT.md
+    """[instrument] FOV smearing reachable from the config (the review
     round-2 item 7): forward shape is per OBSERVED ray, and a config-driven
     limb retrieval with FOV converges on the emulated mesh."""
     from spectrobot_tpu.cli import main
@@ -607,7 +607,7 @@ def test_cli_fov_retrieval(tmp_path, capsys):
 
 
 def test_cli_stop_reason_reported(tmp_path, capsys):
-    """Honest convergence reporting (VERDICT.md round-2 weak item 7): a
+    """Honest convergence reporting (round-2 review weak item 7): a
     max_iter-limited run says so instead of a bare converged: false."""
     from spectrobot_tpu.cli import main
     c = tmp_path / "mi.toml"
@@ -623,7 +623,7 @@ def test_cli_stop_reason_reported(tmp_path, capsys):
 
 
 def test_no_silently_ignored_config_flags():
-    """Tripwire (VERDICT.md round-2 weak item 1): every config key must at
+    """Tripwire (round-2 review weak item 1): every config key must at
     least be REFERENCED by the driver layer — a key that appears nowhere in
     cli.py/config consumers is a silent no-op waiting to happen.  (This
     cannot prove semantic honouring, but catches dropped wiring like the
@@ -647,7 +647,7 @@ def test_no_silently_ignored_config_flags():
 
 
 def test_one_engine_policy_across_subcommands(tmp_path, monkeypatch, capsys):
-    """ONE engine policy (VERDICT r3 weak item 2 / next item 4): forward
+    """ONE engine policy (round-3 review weak item 2 / next item 4): forward
     (single-device), forward (mesh), and retrieve must ALL route their
     opacity-engine choice through cli._engine with the same line count for
     the same config — no path may consult compute.use_pallas directly and
@@ -689,7 +689,7 @@ def test_one_engine_policy_across_subcommands(tmp_path, monkeypatch, capsys):
 def test_cli_mesh_halo_too_narrow_fails_loudly(tmp_path):
     """A TOML-reachable mesh_halo config whose grid is narrower than
     mesh_nu * cutoff must raise a ValueError naming the config keys to
-    change, not a bare AssertionError (VERDICT r3 weak item 6)."""
+    change, not a bare AssertionError (round-3 review weak item 6)."""
     from spectrobot_tpu.cli import main
     c = tmp_path / "narrow.toml"
     c.write_text(_TINY + f"[run]\noutput_dir = \"{tmp_path}/nh\"\n")
@@ -704,7 +704,7 @@ def test_cli_mesh_halo_too_narrow_fails_loudly(tmp_path):
 
 def test_cli_mesh_divisibility_fails_loudly(tmp_path):
     """TOML-reachable mesh divisibility violations must raise ValueError
-    naming the config keys (VERDICT r4 weak item 2) — one standard with the
+    naming the config keys (round-4 review weak item 2) — one standard with the
     halo guard — from every mesh subcommand branch."""
     from spectrobot_tpu.cli import main
     c = tmp_path / "div.toml"
@@ -730,7 +730,7 @@ def test_cli_mesh_divisibility_fails_loudly(tmp_path):
 
 
 def test_cli_forward_emits_spectrum_family(tmp_path, capsys):
-    """forward.npz is written through the Spectrum family (VERDICT r3 weak
+    """forward.npz is written through the Spectrum family (round-3 review weak
     item 5): loads as a Spectrum with kind/units metadata, and the spectral
     axis is the INSTRUMENT CHANNEL grid when ILS is enabled (the old writer
     paired channelised radiances with the fine grid)."""
@@ -856,7 +856,7 @@ def test_cli_retrieve_outputs_fitted_spectrum(tmp_path, capsys):
     resid = (y_obs - y_fit) / noise
     assert np.sqrt(np.mean(resid ** 2)) < 2.0      # at the noise floor
     assert os.path.exists(f"{tmp_path}/fit/fit.png")
-    # Both CLI outputs speak the Spectrum format (VERDICT r4 weak item 6):
+    # Both CLI outputs speak the Spectrum format (round-4 review weak item 6):
     # retrieval.npz loads as a radiance Spectrum whose axis is the channel
     # grid and whose values are the fitted spectrum.
     from spectrobot_tpu.spectra import Spectrum

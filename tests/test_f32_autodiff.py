@@ -1,6 +1,6 @@
 """float32 autodiff safety of the full pipeline (regression tests).
 
-Two real failure modes were found running the retrieval step in f32 on TPU
+Two real failure modes were found running the retrieval step in f32 on an accelerator
 (the production dtype): division JVPs SQUARE the divisor, so
 (a) tiny tangent-bearing denominators underflow (k_B*T ~ 3e-21 -> 9e-42 -> 0)
 (b) huge ones overflow (columns ~1e25 /m^2 -> 1e50 -> inf; inf/inf = NaN).

@@ -1,5 +1,5 @@
 """Independent-oracle validation for CIA radiance, FOV smearing, and the
-nadir grey-surface reflected downwelling (VERDICT r4 item 4).
+nadir grey-surface reflected downwelling (round-4 review item 4).
 
 Until round 5 these three radiative features were validated only
 framework-vs-framework (mesh-vs-single-device, differs-and-thermalised

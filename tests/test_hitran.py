@@ -84,7 +84,7 @@ def test_extended_iso_codes():
 
 
 # ---------------------------------------------------------------------------
-# Genuine-format fixtures + loud error paths (VERDICT r3 item 5)
+# Genuine-format fixtures + loud error paths (round-3 review item 5)
 # ---------------------------------------------------------------------------
 # These records are HAND-ASSEMBLED in the authentic HITRAN 2004 160-char
 # layout — chunk by chunk, each width asserted below — NOT produced by this

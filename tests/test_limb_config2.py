@@ -88,7 +88,7 @@ def test_config2_twenty_tangent_heights():
 
 def test_xla_engine_chunk_clamp():
     """The memory clamp that keeps the XLA engine's vmapped Voigt slab
-    bounded (a 780-state x 16k-point scene at chunk=128 faulted a v5e in
+    bounded (a 780-state x 16k-point scene at chunk=128 faulted a device in
     round 4); no-op for ordinary scenes."""
     from spectrobot_tpu.forward.limb import _clamp_chunk
 

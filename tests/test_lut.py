@@ -76,7 +76,7 @@ def test_lut_round_trip(tmp_path):
 
 
 def test_get_or_build_cache_hit_and_invalidation(tmp_path):
-    """VERDICT.md round-1 item 5: persisted LUTs are keyed to a fingerprint
+    """round-1 review item 5: persisted LUTs are keyed to a fingerprint
     of (line list, grid, lattice); a matching file skips the rebuild, any
     input change misses and rebuilds."""
     from spectrobot_tpu.ops.lut import get_or_build_lut
@@ -105,7 +105,7 @@ def test_get_or_build_cache_hit_and_invalidation(tmp_path):
 
 def test_mesh_build_matches_serial():
     """The lattice build sharded over the 8 emulated devices is identical to
-    the serial build (the TPU-native makeLUT* pool, SURVEY.md 4.3)."""
+    the serial build (the makeLUT* pool replacement, SURVEY.md 4.3)."""
     from spectrobot_tpu.ops.lut import lut_mesh
 
     dl = device_lines_from_linelist(co2_15um_band(j_max=12), [(2, 1)],

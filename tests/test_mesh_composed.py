@@ -1,4 +1,4 @@
-"""The FULL feature matrix composed through the mesh ONCE (VERDICT r4
+"""The FULL feature matrix composed through the mesh ONCE (round-4 review
 item 6): non-LTE x CIA x FOV x limb x engine='pallas' x nu_halo through
 make_sharded_oe, retrieved to convergence, with forward/Jacobian parity
 against the single-device path.  Until round 5 each feature had its own

@@ -119,7 +119,7 @@ def test_sharded_jacobian_row_order_no_ils(scene):
     ((1, 2, 4), True),    # Pallas kernel + nu-halo owner-shard distribution
 ])
 def test_sharded_pallas_engine_matches(scene, mesh_shape, nu_halo):
-    """VERDICT.md round-2 item 1 'done' criterion: the mesh forward AND the
+    """round-2 review item 1 'done' criterion: the mesh forward AND the
     fused-basis analytic Jacobian (ops/pallas_opacity.py basis kernels) run
     THROUGH shard_map with engine='pallas' (interpret mode on the emulated
     CPU mesh) and match the single-device pallas path to the f32
@@ -155,7 +155,7 @@ def test_sharded_pallas_engine_matches(scene, mesh_shape, nu_halo):
 
 
 def test_sharded_nadir_matches_single_device(scene):
-    """Nadir x mesh (VERDICT.md round-2 item 8): the mesh forward and
+    """Nadir x mesh (round-2 review item 8): the mesh forward and
     Jacobian over nadir pixels (sec_theta on the 'ray' axis, grey surface
     with reflected downwelling) match the single-device nadir model."""
     atm, dl, nu, _h_t, W = scene
@@ -199,7 +199,7 @@ def test_sharded_nadir_matches_single_device(scene):
 
 
 def test_sharded_fov_retrieval_matches(scene):
-    """FOV x mesh (VERDICT.md round-2 item 7): field-of-view smearing over a
+    """FOV x mesh (round-2 review item 7): field-of-view smearing over a
     fine tangent-height ladder composes with the mesh — the FOV mixes the
     sharded 'ray' axis outside the shard_map, dropping it from the Jacobian
     row axes."""

@@ -1,4 +1,4 @@
-"""Full-HITRAN molecule registry (VERDICT.md round-1 item 6).
+"""Full-HITRAN molecule registry (round-1 review item 6).
 
 Masses and abundances are COMPUTED from atomic isotope tables; these tests
 pin them against published HITRAN molparam values and assert the loud

@@ -53,7 +53,7 @@ def test_native_handles_edge_inputs():
     ll = parse_par_text(text, use_native="always")
     assert len(ll) == 3
     # Truncated/junk records are REJECTED loudly (round-4 contract: both
-    # engines refuse to silently drop records — VERDICT r3 item 5).
+    # engines refuse to silently drop records — round-3 review item 5).
     import pytest
     with pytest.raises(ValueError, match="malformed .par record"):
         parse_par_text("junk\n" + _sample_text(3), use_native="always")

@@ -1,4 +1,4 @@
-"""Coarse node-grid retrieval parameter basis (VERDICT r4 item 3).
+"""Coarse node-grid retrieval parameter basis (round-4 review item 3).
 
 Reference-class OE codes retrieve on a coarse node grid mapped to model
 levels (SpectRobot's bayes-set parameterisation [TK], SURVEY.md 1.2/3 C16).
@@ -98,7 +98,7 @@ def test_cli_node_retrieval_converges_and_matches_fine(tmp_path, capsys):
     """A 12-level scene retrieved on 5 altitude nodes: converges, the
     Jacobian/posterior shrink to 5 parameters, and the retrieved T at the
     node altitudes matches the fine-grid retrieval within the combined
-    posterior error (VERDICT r4 item 3 done-criterion)."""
+    posterior error (round-4 review item 3 done-criterion)."""
     fine = _cli_retrieve(tmp_path, "fine")
     node = _cli_retrieve(tmp_path, "node", ["retrieval.n_nodes=5"])
     capsys.readouterr()

@@ -1,4 +1,4 @@
-"""Fused analytic-Jacobian basis kernel (VERDICT.md round-1 item 4).
+"""Fused analytic-Jacobian basis kernel (round-1 review item 4).
 
 Covers, on the interpret-mode kernel (CPU):
   * the closed-form Humlicek-w4 gradient vs finite differences of the primal;
@@ -153,7 +153,8 @@ def test_jacfwd_pallas_engine_matches_jnp():
     ll = co2_15um_band(j_max=16)
     dl = device_lines_from_linelist(ll, [(2, 1)], dtype=jnp.float32)
     atm = mars_standard_atmosphere(n_lev=n_lev, z_top=80e3)
-    # The suite conftest enables x64; this test exercises the f32 TPU path.
+    # The suite conftest enables x64; this test exercises the f32 kernel
+    # path.
     atm = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32)
                        if jnp.issubdtype(jnp.asarray(a).dtype, jnp.floating)
                        else a, atm)
@@ -183,15 +184,14 @@ def test_jacfwd_pallas_engine_matches_jnp():
 
 
 def test_rev_mode_kernel_transpose_parity():
-    """Round-3: reverse-mode through the IN-KERNEL transposed basis
-    contraction (pallas_opacity.basis_transpose_pallas_jit) matches the
-    jnp analytic transpose at f32 roundoff, including under structural
-    vmap (custom_vjp batching + the pallas batching rule)."""
+    """Reverse mode with engine='pallas' (kernel primal with baked
+    windows, analytic jnp transpose in the backward) matches the jnp
+    engine at f32 roundoff, including under structural vmap (custom_vjp
+    batching + the kernel's batching rule)."""
     from spectrobot_tpu.data.synth import random_lines
     from spectrobot_tpu.ops.opacity import (
         line_kernel_inputs, make_accumulate_op)
-    from spectrobot_tpu.ops.pallas_opacity import (
-        static_windows, static_windows_T)
+    from spectrobot_tpu.ops.pallas_opacity import static_windows
     from spectrobot_tpu.ops.strengths import device_lines_from_linelist
 
     ll = random_lines(700, 600.0, 750.0, seed=7)
@@ -202,11 +202,9 @@ def test_rev_mode_kernel_transpose_parity():
                                                  jnp.float32))
     nu = jnp.asarray(np.linspace(600.0, 750.0, 1024), jnp.float32)
     w = static_windows(np.asarray(nu), np.asarray(dl.nu0), cutoff_cm1=25.0)
-    wT = static_windows_T(np.asarray(nu), np.asarray(dl.nu0),
-                          cutoff_cm1=25.0)
     op_jnp = make_accumulate_op(mode="rev", engine="jnp", cutoff_cm1=25.0)
     op_pal = make_accumulate_op(mode="rev", engine="pallas", interpret=True,
-                                cutoff_cm1=25.0, windows=w, windows_T=wT)
+                                cutoff_cm1=25.0, windows=w)
     args = (nu, kl.nu_c, kl.scale_x, kl.y, kl.amps)
     loss = lambda op: lambda *a: jnp.sum(jnp.sin(op(*a) * 1e3))
     g_ref = jax.grad(loss(op_jnp), argnums=(1, 2, 3, 4))(*args)

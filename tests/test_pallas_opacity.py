@@ -1,5 +1,5 @@
 """Pallas kernel P1 parity vs the jnp stage-2 path (SURVEY.md 5.4: kernels
-get an interpret=True CPU test; on-chip parity runs in bench/TPU sessions)."""
+get an interpret=True CPU test; on-chip parity runs in tests/test_chip.py)."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -188,7 +188,7 @@ def test_nadir_surface_temperature_retrieval():
 
 
 def test_state_check_warns_and_logs(tmp_path):
-    """VERDICT.md round-1 weak item 5: an accepted LM step that walks the
+    """round-1 review weak item 5: an accepted LM step that walks the
     state out of physical range triggers the state_check hook (warning +
     JSONL record) without stopping the loop."""
     import warnings

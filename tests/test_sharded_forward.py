@@ -59,7 +59,7 @@ def test_sharded_matches_single_device(shape):
     ((1, 2, 4), "pallas", True, True),    # windows x halo x line sharding
 ])
 def test_sharded_engine_halo_matrix(shape, engine, halo, windowed):
-    """The production engine x distribution matrix (VERDICT.md round-2
+    """The production engine x distribution matrix (round-2 review
     item 1): the Pallas kernel and the nu-halo line distribution each match
     the single-device result — jnp to f64 roundoff, pallas to the f32
     accumulation-order level of the kernel itself.  ``windowed`` adds the

@@ -1,6 +1,6 @@
 """Partition sums (component C2).
 
-Round 2 (VERDICT.md item 2): every registered isotopologue is ANCHORED to
+Round 2 (the review item 2): every registered isotopologue is ANCHORED to
 its HITRAN molparam Q(296 K) — exact by construction — and the temperature
 dependence comes from explicit quantum state sums (exact linear-rotor J
 sums, asymmetric-top diagonalisation for H2O, spherical-top sums for CH4).
@@ -118,7 +118,7 @@ def test_unknown_iso_fallback_warns():
 
 
 def test_registry_covers_all_55_molecules():
-    """VERDICT.md round-2 item 2 'done' criterion: q_table(m, 1) succeeds
+    """round-2 review item 2 'done' criterion: q_table(m, 1) succeeds
     for every HITRAN molecule 1-55, produces a positive, finite, strictly
     increasing Q(T), and hits the molparam anchor exactly where one is
     embedded."""
@@ -141,7 +141,7 @@ def _q_dunham(we, wexe, Be, ae, De, T):
     (anharmonicity, vibration-rotation interaction), with constants typed
     from the NIST/Huber-Herzberg diatomic tables — an EXTERNAL check of the
     anchored shape Q(T)/Q(296), which is the only thing line-strength
-    scaling consumes (VERDICT.md round-2 item 3).  v/J ranges capped below
+    scaling consumes (round-2 review item 3).  v/J ranges capped below
     the (unphysical) polynomial turnovers.
     """
     v_max = min(int(we / (2 * wexe) - 0.5), 20)
@@ -212,7 +212,7 @@ def test_h2_ortho_para_shape():
 
 def test_multi_species_forward_nh3_so2():
     """A species pair with NO round-2 partition data (NH3 mol 11, SO2 mol
-    9) runs end-to-end through the forward model — the VERDICT.md round-2
+    9) runs end-to-end through the forward model — the round-2 review
     item 2 'opacity is computable' criterion, not just registry parsing."""
     import jax.numpy as jnp
 

@@ -1,5 +1,5 @@
 """External anchors for the POLYATOMIC partition-function shapes
-(VERDICT r3 item 2 — the round-3 Dunham oracle covered only diatomics).
+(round-3 review item 2 — the round-3 Dunham oracle covered only diatomics).
 
 Strategy, extending tests/test_tips.py::test_shape_anchored_to_dunham_oracle:
 for each molecule the five acceptance configs actually retrieve (H2O, CO2
@@ -183,7 +183,7 @@ def test_co2_626_shape_vs_observed_levels():
 
 
 # ---------------------------------------------------------------------------
-# High-T completion of the CO2 626 oracle (round-5 VERDICT item 10): the
+# High-T completion of the CO2 626 oracle (round-5 review item 10): the
 # observed list truncates at ~3714 cm^-1, which the module docstring
 # records as ~5 % low at 1000 K.  Here the ORACLE (not the production
 # model) gains a POLYAD-CELL tail.  Fermi resonance defeats a smooth
